@@ -23,7 +23,17 @@ Phases, each fatal on failure:
 5. end to end — median ms and GFLOPS (2*nnz/t) per matrix for the
    kernel path and for the plain path;
 6. .mtx — tests/fixtures/bcsstk_style_sym.mtx through load_mtx and
-   TileSpMV against the golden.
+   TileSpMV against the golden;
+7. SpMM — `op.matmat(X)` at k = 8 per matrix (column r of X is
+   ((i + r) % 10) / 4, dyadic) with the launch counters reset just
+   before: every fused SpMM kernel must have launched, and every column
+   must pass the golden gates; then mixed_large at k = 5 (the odd column
+   through the SpMV stream kernel) and banded_large at k = 17 (one SpMV
+   per column), gated the same way; each SpMM kernel against its plain
+   version at k = 8 with a seeded uniform(-1, 1) X (one launch per
+   class; the stream pair on RHS 0 and 1), with the phase-4 bound and
+   times; and end to end per matrix at k = 8: matmat ms against 8 SpMV
+   calls and the plain matmat, GFLOPS = 2*nnz*k/t.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results, then the last line
@@ -54,6 +64,14 @@ KERNELS = {
     "dense": (_SRC + "dense.cu", _TPU + "679", "mixed_large"),
     "sparse": (_SRC + "sparse.cu", _TPU + "724", "mixed_large"),
 }
+SPMM_KERNELS = {
+    "band_spmm": (_SRC + "band_spmm.cu", _TPU + "860", "banded_large"),
+    "dense_spmm": (_SRC + "dense_spmm.cu", _TPU + "1015", "mixed_large"),
+    "sparse_spmm": (_SRC + "sparse_spmm.cu", _TPU + "1042", "mixed_large"),
+    "stream2": (_SRC + "stream2.cu", _TPU + "1555", "powerlaw_large"),
+}
+# right-hand sides of the SpMM phase's plan-level runs and comparisons
+K_MM = 8
 MTX = "tests/fixtures/bcsstk_style_sym.mtx"
 
 
@@ -64,6 +82,13 @@ def log(msg: str) -> None:
 def bench_x(n: int) -> np.ndarray:
     """bench.py's x: ((i % 10) / 4) as float32."""
     return ((np.arange(n) % 10) / 4.0).astype(np.float32)
+
+
+def bench_xs(n: int, k: int) -> np.ndarray:
+    """(n, k) float32, column r = ((i + r) % 10) / 4: dyadic like bench_x,
+    so every f32 sum is exact."""
+    i = np.arange(n)[:, None] + np.arange(k)[None, :]
+    return ((i % 10) / 4.0).astype(np.float32)
 
 
 def golden(csr, x: np.ndarray) -> np.ndarray:
@@ -119,12 +144,23 @@ def card_line() -> str:
 
 
 def class_lists(plan) -> dict:
-    """The plan's classes per kernel name."""
-    return {"band": [plan.band] if plan.band is not None else [],
-            "dense": [plan.dense] if plan.dense is not None else [],
-            "sparse": list(plan.sparses),
-            "stream": [s for s in (plan.stream, plan.stream2)
-                       if s is not None]}
+    """The plan's classes per kernel name (SpMV and SpMM kernels)."""
+    cl = {"band": [plan.band] if plan.band is not None else [],
+          "dense": [plan.dense] if plan.dense is not None else [],
+          "sparse": list(plan.sparses),
+          "stream": [s for s in (plan.stream, plan.stream2)
+                     if s is not None]}
+    cl.update({"band_spmm": cl["band"], "dense_spmm": cl["dense"],
+               "sparse_spmm": cl["sparse"], "stream2": cl["stream"]})
+    return cl
+
+
+def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
+    """gate() on every column of Y = A @ X."""
+    if y.shape != (csr.m, x.shape[1]):
+        raise AssertionError(f"{name}: Y has shape {y.shape}")
+    for r in range(x.shape[1]):
+        gate(f"{name} column {r}", y[:, r], golden(csr, x[:, r]))
 
 
 def class_bytes(cls) -> int:
@@ -132,6 +168,125 @@ def class_bytes(cls) -> int:
     return sum(t.numel() * t.element_size()
                for f in dataclasses.fields(cls)
                if hasattr(t := getattr(cls, f.name), "element_size"))
+
+
+def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
+                    k=None) -> list:
+    """Each kernel of `table` against its plain version on the card, on
+    all the classes of its kind in the plan of its matrix, with a seeded
+    uniform(-1, 1) x: one launch per class, the KERNEL_TOL bound, median
+    times. `k` None: SpMV (flat x and y); else SpMM with x (rows, k) and
+    y (ylen, k) (the stream pair on RHS 0 and 1). Returns the kernels'
+    JSON entries, `launches` being the main path's counts."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    results = []
+    for kname, (src, replaces, mname) in table.items():
+        plan = ops[mname].device_plan()
+        classes = class_lists(plan)[kname]
+        if not classes:
+            raise AssertionError(f"{mname}'s plan has no {kname} class")
+        rhs = () if k is None else (k,)
+        xr = np.random.default_rng(0).uniform(-1, 1, (csrs[mname].n,) + rhs)
+        xp = reference.pad_x(plan, torch.from_numpy(
+            xr.astype(np.float32)).to(dev))
+        ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+        yk = torch.zeros((ylen,) + rhs, device=dev)
+        yp = torch.zeros((ylen,) + rhs, device=dev)
+        extra = (0,) if kname == "stream2" else ()
+
+        def run(fn, y):
+            for c in classes:
+                fn(c, xp, y, *extra)
+        before = kernels.launch_counts()[kname]
+        run(wrap[kname], yk)
+        run(plain[kname], yp)
+        torch.cuda.synchronize()
+        delta = kernels.launch_counts()[kname] - before
+        if delta != len(classes):
+            raise AssertionError(f"{kname}: {delta} launches for "
+                                 f"{len(classes)} classes")
+        err = float((yk - yp).abs().max())
+        bound = KERNEL_TOL * max(1.0, float(yp.abs().max()))
+        rel = float(((yk - yp).abs() / yp.abs().clamp(min=1e-30)).max())
+        if not err <= bound:
+            raise AssertionError(f"{kname}: max |kernel - plain| {err:.3e}"
+                                 f" > {bound:.3e}")
+        ms = cuda_ms(lambda: run(wrap[kname], yk), iters=20)
+        plain_ms = cuda_ms(lambda: run(plain[kname], yp), iters=3)
+        mb = sum(class_bytes(c) for c in classes) / 1e6
+        log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
+            f"{mb:.1f} MB of plan, launches +{delta}"
+            f"{'' if k is None else f', k {k}'}): max abs err {err:.3e} "
+            f"(bound {bound:.3e}), max rel err {rel:.3e}, {ms:.4f} ms "
+            f"({mb / ms:.0f} GB/s) vs plain {plain_ms:.4f} ms [{card}]")
+        results.append(dict(name=kname, route="cuda", source=src,
+                            replaces=replaces, launches=launches[kname],
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    return results
+
+
+def spmm_phase(dev, card, ops, csrs) -> list:
+    """Phase 7 (see the module doc); returns the SpMM kernels' results."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    # plan level: k = 8 on the trio, counters reset just before
+    xs = {n: bench_xs(csrs[n].n, K_MM) for n in FLAGSHIP}
+    xd = {n: torch.from_numpy(xs[n]).to(dev) for n in FLAGSHIP}
+    kernels.reset_launch_counts()
+    ys = {n: ops[n].matmat(xd[n]) for n in FLAGSHIP}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"spmm main path (k {K_MM}) launches: {launches}")
+    for name in SPMM_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "SpMM path")
+    for n in FLAGSHIP:
+        gate_mm(f"matmat {n}", csrs[n], ys[n].cpu().numpy(), xs[n])
+        log(f"gate matmat {n} (k {K_MM}): ok")
+
+    # odd k (the last column through the SpMV stream kernel) and k > 16
+    # (one SpMV per column)
+    for n, k, expect in (("mixed_large", 5, ("stream2", "stream")),
+                         ("banded_large", 17, ("band",))):
+        x = bench_xs(csrs[n].n, k)
+        kernels.reset_launch_counts()
+        y = ops[n].matmat(torch.from_numpy(x).to(dev))
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        if not all(cnt[e] for e in expect) or (
+                k > 16 and any(cnt[s] for s in SPMM_KERNELS)):
+            raise AssertionError(f"matmat {n} k {k}: launches {cnt}")
+        gate_mm(f"matmat {n} k {k}", csrs[n], y.cpu().numpy(), x)
+        log(f"gate matmat {n} (k {k}): ok, launches {cnt}")
+
+    # each SpMM kernel against its plain version
+    wrap = {"band_spmm": kernels.band_spmm, "dense_spmm": kernels.dense_spmm,
+            "sparse_spmm": kernels.sparse_spmm,
+            "stream2": kernels.stream_spmm2}
+    plain = {"band_spmm": reference.band_spmm_reference,
+             "dense_spmm": reference.dense_spmm_reference,
+             "sparse_spmm": reference.sparse_spmm_reference,
+             "stream2": reference.stream2_reference}
+    results = compare_kernels(dev, card, SPMM_KERNELS, wrap, plain, ops,
+                              csrs, launches, k=K_MM)
+
+    # end to end at k = 8
+    for n in FLAGSHIP:
+        op, x = ops[n], xd[n]
+        plan = op.device_plan()
+        cols = [x[:, r].contiguous() for r in range(K_MM)]
+        ms = cuda_ms(lambda: op.matmat(x))
+        spmv_ms = cuda_ms(lambda: [op(c) for c in cols])
+        plain_ms = cuda_ms(lambda: reference.spmm_reference(plan, x),
+                           iters=3)
+        flops = 2.0 * op.nnz * K_MM
+        log(f"e2e matmat {n} (k {K_MM}): kernels {ms:.4f} ms "
+            f"{flops / ms / 1e6:.2f} GFLOPS, {K_MM} x SpMV {spmv_ms:.4f} ms "
+            f"{flops / spmv_ms / 1e6:.2f} GFLOPS, plain {plain_ms:.4f} ms "
+            f"{flops / plain_ms / 1e6:.2f} GFLOPS [{card}]")
+    return results
 
 
 def main() -> int:
@@ -188,8 +343,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"main path launches: {launches}")
-    for name, cnt in launches.items():
-        if cnt == 0:
+    for name in KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
     refs = {n: golden(csrs[n], bench_x(csrs[n].n)) for n in FLAGSHIP}
@@ -206,47 +361,8 @@ def main() -> int:
              "dense": reference.dense_reference,
              "sparse": reference.sparse_reference,
              "stream": reference.stream_reference}
-    results = []
-    for kname, (src, replaces, mname) in KERNELS.items():
-        plan = ops[mname].device_plan()
-        classes = class_lists(plan)[kname]
-        if not classes:
-            raise AssertionError(f"{mname}'s plan has no {kname} class")
-        xr = np.random.default_rng(0).uniform(-1, 1, csrs[mname].n)
-        xp = reference.pad_x(plan, torch.from_numpy(
-            xr.astype(np.float32)).to(dev))
-        ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
-        yk = torch.zeros(ylen, device=dev)
-        yp = torch.zeros(ylen, device=dev)
-        before = kernels.launch_counts()[kname]
-        for c in classes:
-            wrap[kname](c, xp, yk)
-            plain[kname](c, xp, yp)
-        torch.cuda.synchronize()
-        delta = kernels.launch_counts()[kname] - before
-        if delta != len(classes):
-            raise AssertionError(f"{kname}: {delta} launches for "
-                                 f"{len(classes)} classes")
-        err = float((yk - yp).abs().max())
-        bound = KERNEL_TOL * max(1.0, float(yp.abs().max()))
-        rel = float(((yk - yp).abs() / yp.abs().clamp(min=1e-30)).max())
-        if not err <= bound:
-            raise AssertionError(f"{kname}: max |kernel - plain| {err:.3e}"
-                                 f" > {bound:.3e}")
-
-        def run(fns, y=yk):
-            for c in classes:
-                fns(c, xp, y)
-        ms = cuda_ms(lambda: run(wrap[kname]), iters=20)
-        plain_ms = cuda_ms(lambda: run(plain[kname], yp), iters=3)
-        mb = sum(class_bytes(c) for c in classes) / 1e6
-        log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
-            f"{mb:.1f} MB of plan, launches +{delta}): max abs err {err:.3e} (bound "
-            f"{bound:.3e}), max rel err {rel:.3e}, {ms:.4f} ms "
-            f"({mb / ms:.0f} GB/s) vs plain {plain_ms:.4f} ms [{card}]")
-        results.append(dict(name=kname, route="cuda", source=src,
-                            replaces=replaces, launches=launches[kname],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    results = compare_kernels(dev, card, KERNELS, wrap, plain, ops, csrs,
+                              launches)
 
     # 5. end to end
     for n in FLAGSHIP:
@@ -266,6 +382,8 @@ def main() -> int:
     y = TileSpMV(csr, device=dev)(x).cpu().numpy()
     gate(MTX, y, golden(csr, x))
     log(f"mtx {MTX}: {csr.m}x{csr.n} nnz {csr.nnz} ok")
+
+    results += spmm_phase(dev, card, ops, csrs)
 
     log(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The CUDA class kernels against their plain PyTorch versions on the
-card. Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
+"""The CUDA class kernels (SpMV and SpMM) against their plain PyTorch
+versions on the card, and the operator against the float64 golden. Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -28,6 +28,25 @@ PAIRS = {"band": (kernels.band_spmv, reference.band_reference),
          "dense": (kernels.dense_spmv, reference.dense_reference),
          "sparse": (kernels.sparse_spmv, reference.sparse_reference),
          "stream": (kernels.stream_spmv, reference.stream_reference)}
+MM_PAIRS = {
+    "band": ("band_spmm", kernels.band_spmm, reference.band_spmm_reference),
+    "dense": ("dense_spmm", kernels.dense_spmm,
+              reference.dense_spmm_reference),
+    "sparse": ("sparse_spmm", kernels.sparse_spmm,
+               reference.sparse_spmm_reference),
+    "stream": ("stream2", kernels.stream_spmm2, reference.stream2_reference)}
+
+
+def _classes(plan):
+    return {"band": [plan.band], "dense": [plan.dense],
+            "sparse": list(plan.sparses),
+            "stream": [plan.stream, plan.stream2]}
+
+
+def _bench_x(n, k=None):
+    """bench.py's dyadic x (column r shifted by r): exact f32 sums."""
+    i = np.arange(n) if k is None else np.arange(n)[:, None] + np.arange(k)
+    return ((i % 10) / 4.0).astype(np.float32)
 
 
 @pytest.fixture
@@ -46,11 +65,8 @@ def test_kernels_match_plain_versions(name, device):
         -1, 1, csr.n).astype(np.float32)).to(device)
     xp = reference.pad_x(plan, x)
     ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
-    classes = {"band": [plan.band], "dense": [plan.dense],
-               "sparse": list(plan.sparses),
-               "stream": [plan.stream, plan.stream2]}
     ran = 0
-    for kind, cls_list in classes.items():
+    for kind, cls_list in _classes(plan).items():
         for cls in cls_list:
             if cls is None:
                 continue
@@ -68,7 +84,46 @@ def test_kernels_match_plain_versions(name, device):
     assert ran
     # end to end vs the float64 golden with bench.py's x (cancellation
     # in a uniform(-1, 1) x would put f32 rounding above the bound)
-    xb = ((np.arange(csr.n) % 10) / 4.0).astype(np.float32)
+    xb = _bench_x(csr.n)
     np.testing.assert_allclose(op(xb).cpu().numpy(),
                                csr.matvec(xb.astype(np.float64)),
                                rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [2, 5, 16])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_spmm_kernels_match_plain_versions(name, k, device):
+    csr = MATRICES[name]()
+    op = TileSpMV(csr, device=device)
+    plan = op.device_plan()
+    x = torch.from_numpy(np.random.default_rng(k).uniform(
+        -1, 1, (csr.n, k)).astype(np.float32)).to(device)
+    xp = reference.pad_x(plan, x)
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    ran = 0
+    for kind, cls_list in _classes(plan).items():
+        key, wrap, plain = MM_PAIRS[kind]
+        # the stream pair at RHS (k-2, k-1): an offset and, for odd k,
+        # an odd one
+        extra = (k - 2,) if kind == "stream" else ()
+        for cls in cls_list:
+            if cls is None:
+                continue
+            yk = torch.zeros(ylen, k, device=device)
+            yp = torch.zeros(ylen, k, device=device)
+            before = kernels.launch_counts()[key]
+            wrap(cls, xp, yk, *extra)
+            assert kernels.launch_counts()[key] == before + 1
+            plain(cls, xp, yp, *extra)
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max())
+            assert err <= 1e-5 * max(1.0, float(yp.abs().max())), kind
+            ran += 1
+    assert ran
+    # the operator end to end against the golden, fused and per column
+    for kk in (k, 17):
+        xb = _bench_x(csr.n, kk)
+        got = (op @ xb).cpu().numpy()
+        want = np.stack([csr.matvec(xb[:, r].astype(np.float64))
+                         for r in range(kk)], axis=1)
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)

@@ -1,0 +1,146 @@
+"""The plain PyTorch SpMM versions of the band and dense classes
+(tilespmv_tpu_torch/ops/cuda/reference.py) against
+tilespmv_tpu's fused Pallas SpMM kernels in interpret mode, on the
+identical plan (carried across by lane_plan_from_jax), for k in
+{2, 5, 16}; and the SpMM wrappers' checks and CPU routing. The W-class
+is in test_torch_spmm_sparse.py, the stream pair in
+test_torch_spmm_stream.py, the operator in test_torch_spmm_slice.py.
+
+The Pallas calls return (k*16, n_windows*256) blocks with RHS r at rows
+[16r, 16r + 16); each block is held against column r of the port's
+(ylen, k) output through window_flat.
+
+Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) (different f32
+summation order: the interpret path routes by an exact scatter-add)."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from tilespmv_tpu.io import generate
+from tilespmv_tpu.ops.pallas import kernels as jk
+from tilespmv_tpu_torch.ops.cuda import kernels
+from tilespmv_tpu_torch.ops.cuda import reference as ref
+from test_torch_kernels import close, plans, window_flat, y_len
+
+KS = [2, 5, 16]
+
+
+def xs_for(n, k, seed=0):
+    return np.random.default_rng(seed).uniform(-1, 1, (n, k)).astype(
+        np.float32)
+
+
+def panels_k(jplan, x):
+    """spmm_pallas's x panels: the k RHS stacked along the lanes."""
+    return jnp.concatenate([jk.x_to_panels(jplan, jnp.asarray(x[:, r]))
+                            for r in range(x.shape[1])], axis=2)
+
+
+def run_torch_mm(fn, cls, tplan, x):
+    xp = ref.pad_x(tplan, torch.from_numpy(x))
+    y = torch.zeros(y_len(tplan), x.shape[1])
+    assert fn(cls, xp, y) is y
+    return y.numpy()
+
+
+def close_blocks(got, blocks):
+    """got (ylen, k) against the Pallas (k*16, nw*256) output."""
+    k = got.shape[1]
+    for r in range(k):
+        close(got[:, r], window_flat(blocks[16 * r: 16 * r + 16],
+                                     got.shape[0]))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_band_spmm_reference_matches_interpret(k):
+    jplan, tplan = plans(generate.banded(512, 512, 10, seed=5))
+    assert tplan.band is not None
+    x = xs_for(jplan.n, k)
+    want = np.asarray(jk.band_spmm_call(jplan.band, panels_k(jplan, x),
+                                        jplan.n_windows, k, interpret=True))
+    close_blocks(run_torch_mm(ref.band_spmm_reference, tplan.band, tplan,
+                              x), want)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_dense_spmm_reference_matches_interpret(k):
+    jplan, tplan = plans(generate.mixed_structure(1024, 1024, seed=9))
+    assert tplan.dense is not None
+    x = xs_for(jplan.n, k)
+    want = np.asarray(jk.dense_spmm_call(jplan.dense, panels_k(jplan, x),
+                                         jplan.n_windows, k,
+                                         interpret=True))
+    close_blocks(run_torch_mm(ref.dense_spmm_reference, tplan.dense, tplan,
+                              x), want)
+
+
+def _cpu_plan():
+    _, tplan = plans(generate.mixed_structure(512, 512, seed=1))
+    return tplan
+
+
+def test_spmm_wrappers_use_plain_version_on_cpu():
+    plan = _cpu_plan()
+    x = torch.from_numpy(xs_for(plan.n, 5))
+    xp = ref.pad_x(plan, x)
+    before = kernels.launch_counts()
+    for wrap, plain, cls, extra in (
+            (kernels.dense_spmm, ref.dense_spmm_reference, plan.dense, ()),
+            (kernels.stream_spmm2, ref.stream2_reference, plan.stream,
+             (3,))):
+        ya = torch.zeros(y_len(plan), 5)
+        yb = torch.zeros(y_len(plan), 5)
+        assert wrap(cls, xp, ya, *extra) is ya
+        plain(cls, xp, yb, *extra)
+        assert torch.equal(ya, yb) and ya.abs().max() > 0
+    assert kernels.launch_counts() == before
+    torch.testing.assert_close(kernels.spmm_cuda(plan, x),
+                               ref.spmm_reference(plan, x))
+    assert kernels.launch_counts() == before
+
+
+def test_stream_pair_touches_only_its_columns():
+    plan = _cpu_plan()
+    xp = ref.pad_x(plan, torch.from_numpy(xs_for(plan.n, 5)))
+    y = torch.zeros(y_len(plan), 5)
+    kernels.stream_spmm2(plan.stream, xp, y, 1)
+    assert y[:, [0, 3, 4]].abs().max() == 0
+    one = torch.zeros(y_len(plan))
+    ref.stream_reference(plan.stream, xp[:, 2].contiguous(), one)
+    torch.testing.assert_close(y[:, 2], one)
+
+
+@pytest.mark.parametrize("k", [1, 17])
+def test_fused_wrappers_refuse_k_outside_their_range(k):
+    plan = _cpu_plan()
+    xp = torch.zeros(max(plan.x_padded_len, plan.x_padded_len128), k)
+    y = torch.zeros(y_len(plan), k)
+    for wrap, cls in ((kernels.dense_spmm, plan.dense),
+                      (kernels.band_spmm, plan.dense),
+                      (kernels.sparse_spmm, plan.dense)):
+        with pytest.raises(ValueError, match="k = "):
+            wrap(cls, xp, y)
+
+
+def test_spmm_wrappers_refuse_bad_inputs():
+    plan = _cpu_plan()
+    rows = max(plan.x_padded_len, plan.x_padded_len128)
+    xp = torch.zeros(rows, 4)
+    y = torch.zeros(y_len(plan), 4)
+    with pytest.raises(ValueError):            # RHS pair past the end
+        kernels.stream_spmm2(plan.stream, xp, y, 3)
+    with pytest.raises(ValueError):            # column counts differ
+        kernels.dense_spmm(plan.dense, xp, torch.zeros(y_len(plan), 3))
+    with pytest.raises(ValueError):            # not 2-D
+        kernels.dense_spmm(plan.dense, xp[:, 0].contiguous(), y)
+    with pytest.raises(ValueError):            # not contiguous
+        kernels.dense_spmm(plan.dense, torch.zeros(4, rows).T, y)
+    with pytest.raises(ValueError, match="aligned"):   # rows as vectors
+        kernels.dense_spmm(plan.dense, xp.view(-1)[1:].view(-1)[
+            : rows * 4 - 4].view(rows - 1, 4), y)
+    with pytest.raises(TypeError):
+        kernels.dense_spmm(plan.dense, xp.double(), y)
+    with pytest.raises(ValueError):            # x and y on two devices
+        kernels.dense_spmm(plan.dense, xp, y.to("meta"))

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels (csrc/*.cu) for the H100 (sm_90a).
 
-All sources compile with one nvcc call into one shared library with a
+Each source compiles in its own nvcc process, all started together, and
+one more nvcc call links the objects into one shared library with a
 plain C interface, in the repo's git-ignored `build/cuda/` directory, at
 first use; ctypes loads it. Nothing here runs at import. A missing nvcc
 or a failed build raises: there is no fallback to the plain versions on
@@ -14,12 +15,13 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC_DIR = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "cuda"
 LIB_NAME = "libtilespmv_cuda.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (name, argtypes); every entry returns cudaGetLastError()
@@ -28,6 +30,10 @@ ENTRY_POINTS = {
     "tsp_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tsp_sparse": [_P] * 6 + [_I] * 5 + [_P],
     "tsp_stream": [_P] * 10 + [_I] * 4 + [_P],
+    "tsp_band_spmm": [_P] * 6 + [_I] * 4 + [_P],
+    "tsp_dense_spmm": [_P] * 6 + [_I] * 5 + [_P],
+    "tsp_sparse_spmm": [_P] * 6 + [_I] * 6 + [_P],
+    "tsp_stream2": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -44,10 +50,18 @@ def find_nvcc() -> str:
                        "(set NVCC or put the CUDA toolkit on PATH)")
 
 
+def _run(cmd: list) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stderr[-8000:]}")
+
+
 def build() -> pathlib.Path:
     """Compile csrc/*.cu into BUILD_DIR unless an up-to-date library is
-    there; returns its path. Writes to a per-process name and renames
-    into place, so concurrent builders never load a partial file."""
+    there; returns its path. Writes to per-process names and renames the
+    library into place, so concurrent builds never load a partial
+    file."""
     srcs = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     out = BUILD_DIR / LIB_NAME
     if out.exists() and all(
@@ -55,15 +69,21 @@ def build() -> pathlib.Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr[-8000:]}")
-    os.replace(tmp, out)
+    tag = os.getpid()
+    tmp = BUILD_DIR / f".{LIB_NAME}.{tag}"
+    cus = [s for s in srcs if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in cus]
+    try:
+        with ThreadPoolExecutor(len(cus)) as pool:
+            for f in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-c", "-o",
+                                         str(o), str(s)])
+                      for s, o in zip(cus, objs)]:
+                f.result()
+        _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        os.replace(tmp, out)
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
     return out
 
 

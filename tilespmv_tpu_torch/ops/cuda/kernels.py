@@ -1,10 +1,14 @@
-"""Wrappers of the four CUDA class kernels, and the SpMV they assemble.
+"""Wrappers of the CUDA class kernels, and the SpMV and SpMM they
+assemble.
 
-Each wrapper `*_spmv(cls, x, y)` checks its inputs and adds its class's
-contribution into the flat f32 `y` in place (see reference.py for the
-index arithmetic). `x` must be padded by `reference.pad_x` and `y` span
-the plan's windows, as `reference.assemble` allocates them: the kernels
-index both from plan values. Given CPU tensors a wrapper runs the
+Each SpMV wrapper `*_spmv(cls, x, y)` checks its inputs and adds its
+class's contribution into the flat f32 `y` in place (see reference.py
+for the index arithmetic); each SpMM wrapper (`band_spmm`, `dense_spmm`,
+`sparse_spmm` for k in SPMM_K, `stream_spmm2` for one RHS pair) does the
+same for x (rows, k) and y (ylen, k), row-major. `x` must be padded by
+`reference.pad_x` and `y` span the plan's windows, as
+`reference.assemble` / `assemble_mm` allocate them: the kernels index
+both from plan values. Given CPU tensors a wrapper runs the
 class's plain PyTorch version; given CUDA tensors it launches the kernel
 on the current stream (building the library on first use) or raises.
 `LAUNCHES` counts kernel launches per wrapper; it moves only where a
@@ -18,11 +22,18 @@ import torch
 
 from . import build
 from .lane_plan import ROW_WINDOW, LanePlan, sparse_meta_rows
-from .reference import (assemble, band_reference, dense_reference,
-                        sparse_reference, stream_reference)
+from .reference import (assemble, assemble_mm, band_reference,
+                        band_spmm_reference, dense_reference,
+                        dense_spmm_reference, sparse_reference,
+                        sparse_spmm_reference, stream2_reference,
+                        stream_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 
-LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0}
+# k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
+# reference fuses (tilespmv_tpu/ops/spmv.py:84)
+SPMM_K = range(2, 17)
+LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
+            "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0}
 
 
 def reset_launch_counts() -> None:
@@ -69,6 +80,28 @@ def _check_xy(x, y) -> None:
         raise ValueError(f"x on {x.device}, y on {y.device}")
 
 
+def _check_xy_mm(name: str, x, y, k_range=SPMM_K) -> int:
+    """k of x (rows, k) and y (ylen, k), checked against k_range (None:
+    any k)."""
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"{name}: x and y must be float32")
+    if x.dim() != 2 or y.dim() != 2 or not x.is_contiguous() \
+            or not y.is_contiguous():
+        raise ValueError(f"{name}: x and y must be contiguous 2-D tensors")
+    if x.device != y.device:
+        raise ValueError(f"{name}: x on {x.device}, y on {y.device}")
+    if x.data_ptr() % 16 or y.data_ptr() % 16:
+        raise ValueError(f"{name}: x and y must start 16-byte aligned "
+                         "(the kernels read whole rows as vectors)")
+    k = x.shape[1]
+    if y.shape[1] != k:
+        raise ValueError(f"{name}: x has {k} columns, y {y.shape[1]}")
+    if k_range is not None and k not in k_range:
+        raise ValueError(f"{name}: k = {k}, the kernel takes "
+                         f"{k_range.start} <= k < {k_range.stop}")
+    return k
+
+
 def _p(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
@@ -83,29 +116,17 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums."""
-    _check_xy(x, y)
-    dev = y.device
+def _check_band(bd, dev) -> tuple:
     nch, C = bd.val.shape[0], bd.val.shape[1]
     _check("band.val", bd.val, torch.float32, (nch, C, 16, 16, ROW_WINDOW),
            dev)
     _check("band.bloc", bd.bloc, torch.int32, (nch, 1, ROW_WINDOW), dev)
     _check("pb", bd.pb, torch.int32, (nch * bd.k_panels,), dev)
     _check("band.cw", bd.cw, torch.int32, (nch,), dev)
-    if not _use_kernel(y):
-        return band_reference(bd, x, y)
-    err = build.load().tsp_band(
-        _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
-        nch, C, bd.k_panels, _stream())
-    _launched("band", err)
-    return y
+    return nch, C
 
 
-def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Dense class: densified 16x16 tiles, routed by meta[LROW]."""
-    _check_xy(x, y)
-    dev = y.device
+def _check_dense(d, dev) -> int:
     nch, T = d.val.shape[0], d.t_lanes
     if nch % d.c_batch:
         raise ValueError("dense: chunk count not a multiple of c_batch")
@@ -114,19 +135,10 @@ def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     _check("dense.meta", d.meta, torch.int32, (nch, 2, T), dev)
     _check("pb", d.pb, torch.int32, (nsteps * d.k_panels,), dev)
     _check("dense.cw", d.cw, torch.int32, (nsteps,), dev)
-    if not _use_kernel(y):
-        return dense_reference(d, x, y)
-    err = build.load().tsp_dense(
-        _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
-        nch, T, d.k_panels, d.c_batch, _stream())
-    _launched("dense", err)
-    return y
+    return nch
 
 
-def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class: packed sparse-entry tiles, routed by meta[LROW]."""
-    _check_xy(x, y)
-    dev = y.device
+def _check_sparse(s, dev) -> int:
     nch, W, T = s.val.shape[0], s.width, s.t_lanes
     if nch % s.c_batch:
         raise ValueError("sparse: chunk count not a multiple of c_batch")
@@ -136,19 +148,10 @@ def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
            (nch, sparse_meta_rows(W), T), dev)
     _check("pb", s.pb, torch.int32, (nsteps * s.k_panels,), dev)
     _check("sparse.cw", s.cw, torch.int32, (nsteps,), dev)
-    if not _use_kernel(y):
-        return sparse_reference(s, x, y)
-    err = build.load().tsp_sparse(
-        _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
-        nch, W, T, s.k_panels, s.c_batch, _stream())
-    _launched("sparse", err)
-    return y
+    return nch
 
 
-def stream_spmv(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Stream class: entry slabs, lane prefix + round-plane scatter."""
-    _check_xy(x, y)
-    dev = y.device
+def _check_stream(st, dev) -> int:
     S, R = st.s_batch, st.rounds
     nsteps = st.cw.shape[0]
     nsl = nsteps * S
@@ -164,14 +167,120 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                dev)
     _check("stream.cw", st.cw, torch.int32, (nsteps,), dev)
     _check("stream.sactive", st.sactive, torch.int32, (nsteps,), dev)
+    return nsteps
+
+
+def _stream_args(st, x, y, nsteps) -> tuple:
+    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
+    return (_p(st.val), _p(st.vidx), _p(st.planes), _p(st.sbase), _p(sb2),
+            _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y),
+            nsteps, st.s_batch, st.rounds, st.span_rows)
+
+
+def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums."""
+    _check_xy(x, y)
+    nch, C = _check_band(bd, y.device)
+    if not _use_kernel(y):
+        return band_reference(bd, x, y)
+    err = build.load().tsp_band(
+        _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
+        nch, C, bd.k_panels, _stream())
+    _launched("band", err)
+    return y
+
+
+def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dense class: densified 16x16 tiles, routed by meta[LROW]."""
+    _check_xy(x, y)
+    nch = _check_dense(d, y.device)
+    if not _use_kernel(y):
+        return dense_reference(d, x, y)
+    err = build.load().tsp_dense(
+        _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
+        nch, d.t_lanes, d.k_panels, d.c_batch, _stream())
+    _launched("dense", err)
+    return y
+
+
+def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """W-class: packed sparse-entry tiles, routed by meta[LROW]."""
+    _check_xy(x, y)
+    nch = _check_sparse(s, y.device)
+    if not _use_kernel(y):
+        return sparse_reference(s, x, y)
+    err = build.load().tsp_sparse(
+        _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
+        nch, s.width, s.t_lanes, s.k_panels, s.c_batch, _stream())
+    _launched("sparse", err)
+    return y
+
+
+def stream_spmv(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Stream class: entry slabs, lane prefix + round-plane scatter."""
+    _check_xy(x, y)
+    nsteps = _check_stream(st, y.device)
     if not _use_kernel(y):
         return stream_reference(st, x, y)
-    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
-    err = build.load().tsp_stream(
-        _p(st.val), _p(st.vidx), _p(st.planes), _p(st.sbase), _p(sb2),
-        _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y),
-        nsteps, S, R, st.span_rows, _stream())
+    err = build.load().tsp_stream(*_stream_args(st, x, y, nsteps),
+                                  _stream())
     _launched("stream", err)
+    return y
+
+
+def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Band class over the k columns of x (rows, k) into y (ylen, k)."""
+    k = _check_xy_mm("band_spmm", x, y)
+    nch, C = _check_band(bd, y.device)
+    if not _use_kernel(y):
+        return band_spmm_reference(bd, x, y)
+    err = build.load().tsp_band_spmm(
+        _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
+        nch, C, bd.k_panels, k, _stream())
+    _launched("band_spmm", err)
+    return y
+
+
+def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dense class over the k columns of x (rows, k) into y (ylen, k)."""
+    k = _check_xy_mm("dense_spmm", x, y)
+    nch = _check_dense(d, y.device)
+    if not _use_kernel(y):
+        return dense_spmm_reference(d, x, y)
+    err = build.load().tsp_dense_spmm(
+        _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
+        nch, d.t_lanes, d.k_panels, d.c_batch, k, _stream())
+    _launched("dense_spmm", err)
+    return y
+
+
+def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """W-class over the k columns of x (rows, k) into y (ylen, k)."""
+    k = _check_xy_mm("sparse_spmm", x, y)
+    nch = _check_sparse(s, y.device)
+    if not _use_kernel(y):
+        return sparse_spmm_reference(s, x, y)
+    err = build.load().tsp_sparse_spmm(
+        _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
+        nch, s.width, s.t_lanes, s.k_panels, s.c_batch, k, _stream())
+    _launched("sparse_spmm", err)
+    return y
+
+
+def stream_spmm2(st, x: torch.Tensor, y: torch.Tensor,
+                 r: int) -> torch.Tensor:
+    """Stream class over columns r and r+1 of x (rows, k) into y
+    (ylen, k), any k >= 2."""
+    k = _check_xy_mm("stream_spmm2", x, y, k_range=None)
+    if not 0 <= r < k - 1:
+        raise ValueError(f"stream_spmm2: RHS pair ({r}, {r + 1}) outside "
+                         f"the {k} columns")
+    nsteps = _check_stream(st, y.device)
+    if not _use_kernel(y):
+        return stream2_reference(st, x, y, r)
+    err = build.load().tsp_stream2(*_stream_args(st, x, y, nsteps), k, r,
+                                   _stream())
+    _launched("stream2", err)
     return y
 
 
@@ -180,3 +289,11 @@ def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     CUDA device; on CPU tensors every class runs its plain version)."""
     return assemble(plan, x, band_spmv, dense_spmv, sparse_spmv,
                     stream_spmv)
+
+
+def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n, k) with k in SPMM_K, through the fused SpMM
+    kernels (an odd k's last column through the SpMV stream kernel); on
+    CPU tensors every class runs its plain version."""
+    return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
+                       stream_spmm2, stream_spmv)

@@ -1,13 +1,16 @@
-"""Plain PyTorch versions of the four class kernels, and the SpMV they
-assemble.
+"""Plain PyTorch versions of the class kernels, and the SpMV and SpMM
+they assemble.
 
 Each `*_reference(cls, x, y)` adds its class's contribution into the
-flat f32 output `y` in place and returns it. `x` is the padded flat x
-(see `pad_x`); the class's plan arrays are tensors on x's device. They
-use the same index arithmetic as the CUDA kernels (ops/cuda/csrc) and
-exact f32 elementwise products, `cumsum` and `index_add_`, so each
-kernel is held to its plain version, and the plain versions to
-tilespmv_tpu's Pallas kernels in interpret mode (tests/test_torch_*).
+f32 output `y` in place and returns it. `x` is the padded x (see
+`pad_x`); the class's plan arrays are tensors on x's device. For SpMV
+x is flat (rows,) and y (ylen,); for SpMM over k right-hand sides x is
+(rows, k) and y (ylen, k), row-major, and every index below reads
+x[i] as x[i, r] and y[i] as y[i, r] for each RHS r. They use the same
+index arithmetic as the CUDA kernels (ops/cuda/csrc) and exact f32
+elementwise products, `cumsum` and `index_add_`, so each kernel is held
+to its plain version, and the plain versions to tilespmv_tpu's Pallas
+kernels in interpret mode (tests/test_torch_*).
 
 Global indices, shared with the kernels:
 
@@ -30,20 +33,34 @@ from .lane_plan import PANEL_TC, ROW_WINDOW, LanePlan, map_arrays
 from .stream_plan import LANES, RW_ROWS, SPAN_ROWS, SUBS
 
 _B = 16
-# slabs per pass of stream_reference (bounds its gather temporaries)
+# slab-RHS pairs per pass of stream_reference (bounds its gather
+# temporaries: a pass of k RHS takes 2048 // k slabs)
 _STREAM_SLABS_PER_PASS = 2048
 
 
+def _rhs(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """v with a trailing unit dimension per RHS dimension of x, so that
+    it broadcasts against x's gathered values."""
+    return v.reshape(v.shape + (1,) * (x.dim() - 1))
+
+
+def _take(a: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """a.gather(dim, idx), idx broadcast over a's trailing RHS dims."""
+    tail = a.shape[idx.dim():]
+    idx = idx.reshape(idx.shape + (1,) * len(tail)).expand(idx.shape + tail)
+    return a.gather(dim, idx)
+
+
 def _x_blocks(pb: torch.Tensor, loc: torch.Tensor, x: torch.Tensor):
-    """(rows, 16, T) x blocks of the lanes at `loc` (rows, T) given each
-    row's (rows, K) panel ids."""
+    """(rows, 16, T[, k]) x blocks of the lanes at `loc` (rows, T) given
+    each row's (rows, K) panel ids."""
     tc = pb.gather(1, loc >> 8) * PANEL_TC + (loc & (PANEL_TC - 1))
     j = torch.arange(_B, device=x.device)
     return x[tc[:, None, :] * _B + j[None, :, None]]
 
 
 def _route(yc, cw_of_chunk, lrow, valid, y):
-    """Add chunk results yc (nchunks, 16, T) at rows
+    """Add chunk results yc (nchunks, 16, T[, k]) at rows
     (cw*256 + lrow)*16 + i of y, valid lanes only."""
     i = torch.arange(_B, device=y.device)
     rows = ((cw_of_chunk[:, None] * ROW_WINDOW + lrow) * _B)[:, None, :] \
@@ -59,10 +76,11 @@ def band_reference(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     T = ROW_WINDOW
     pb = bd.pb.view(nch, bd.k_panels).long()
     bloc = bd.bloc.view(nch, T).long()
-    acc = torch.zeros(nch, _B, T, dtype=torch.float32, device=y.device)
+    acc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=torch.float32,
+                      device=y.device)
     for cb in range(C):
         xq = _x_blocks(pb, bloc + cb, x)                 # (nch, 16j, T)
-        acc += (bd.val[:, cb] * xq[:, :, None, :]).sum(dim=1)
+        acc += (_rhs(bd.val[:, cb], x) * xq[:, :, None]).sum(dim=1)
     valid = torch.ones(nch, T, dtype=torch.bool, device=y.device)
     lane = torch.arange(T, device=y.device).expand(nch, T)
     return _route(acc, bd.cw.long(), lane, valid, y)
@@ -76,7 +94,7 @@ def dense_reference(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     xloc = d.meta[:, 0].long()
     pb = d.pb.view(-1, d.k_panels).long()[step]
     xg = _x_blocks(pb, xloc.clamp(min=0), x)              # (nch, 16j, T)
-    yc = (d.val * xg[:, :, None, :]).sum(dim=1)           # (nch, 16i, T)
+    yc = (_rhs(d.val, x) * xg[:, :, None]).sum(dim=1)     # (nch, 16i, T)
     return _route(yc, d.cw.long()[step], d.meta[:, 1].long(), xloc >= 0, y)
 
 
@@ -93,11 +111,11 @@ def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     slot = torch.arange(W, device=dev)
     words = s.meta[:, 2 + slot // 8]                      # (nch, W, T)
     col = (words >> ((slot % 8) * 4)[None, :, None]) & 15
-    cs = torch.cumsum(s.val * xg.gather(1, col.long()), dim=1)
+    cs = torch.cumsum(_rhs(s.val, x) * _take(xg, 1, col.long()), dim=1)
     r = torch.arange(_B, device=dev)
     rwords = s.meta[:, 2 + W // 8 + r // 4]               # (nch, 16, T)
     rend = (rwords >> ((r % 4) * 8)[None, :, None]) & 255
-    g = cs.gather(1, rend.long())
+    g = _take(cs, 1, rend.long())
     yc = g - torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
     return _route(yc, s.cw.long()[step], s.meta[:, 1].long(), xloc >= 0, y)
 
@@ -109,11 +127,12 @@ def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     rsrc[q, j]."""
     S, R, span = st.s_batch, st.rounds, st.span_rows
     dev = y.device
+    rhs = x.shape[1:]
     nsteps = st.cw.shape[0]
     planes = st.planes.view(nsteps, R, 3, S, SUBS, LANES)
     k = torch.arange(SUBS, device=dev)[None, :, None]
     qj = torch.arange(SUBS * LANES, device=dev).view(1, SUBS, LANES)
-    per = max(1, _STREAM_SLABS_PER_PASS // S)
+    per = max(1, _STREAM_SLABS_PER_PASS // (S * x[0].numel()))
     for s0 in range(0, nsteps, per):
         s1 = min(nsteps, s0 + per)
         sl = slice(s0 * S, s1 * S)
@@ -129,16 +148,32 @@ def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                 sb = torch.where(((v >> 13) & 1) == 1,
                                  st.sbase2[sl].long()[:, None, None], sb)
             xrow = sb + k * (span // 8) + ch
-        contrib = st.val[sl] * x[xrow * LANES + (v & (LANES - 1))]
+        contrib = _rhs(st.val[sl], x) * x[xrow * LANES + (v & (LANES - 1))]
         csum = torch.cumsum(contrib, dim=2)                # (nsl, 8, 128)
         p = planes[s0:s1].permute(0, 3, 1, 2, 4, 5).reshape(
             nsl, R, 3, SUBS, LANES).long()
-        cs = csum[:, None].expand(nsl, R, SUBS, LANES)
-        diff = cs.gather(3, p[:, :, 0]) - cs.gather(3, p[:, :, 1])
-        yv = diff.gather(2, p[:, :, 2]).sum(dim=1)         # (nsl, 8, 128)
+        cs = csum[:, None].expand((nsl, R) + csum.shape[1:])
+        diff = _take(cs, 3, p[:, :, 0]) - _take(cs, 3, p[:, :, 1])
+        yv = _take(diff, 2, p[:, :, 2]).sum(dim=1)         # (nsl, 8, 128)
         win = st.cw[s0:s1].long().repeat_interleave(S)
         rows = win[:, None, None] * RW_ROWS + qj
-        y.index_add_(0, rows.reshape(-1), yv.reshape(-1))
+        y.index_add_(0, rows.reshape(-1), yv.reshape((-1,) + rhs))
+    return y
+
+
+# The class versions above take k right-hand sides as well: they are the
+# plain versions of the fused SpMM kernels (band_spmm.cu, dense_spmm.cu,
+# sparse_spmm.cu).
+band_spmm_reference = band_reference
+dense_spmm_reference = dense_reference
+sparse_spmm_reference = sparse_reference
+
+
+def stream2_reference(st, x: torch.Tensor, y: torch.Tensor,
+                      r: int) -> torch.Tensor:
+    """The stream class on RHS r and r+1 of x (rows, k) into y (ylen, k):
+    stream2.cu's plain version."""
+    stream_reference(st, x[:, r:r + 2], y[:, r:r + 2])
     return y
 
 
@@ -148,40 +183,87 @@ def to_torch(plan: LanePlan, device=None) -> LanePlan:
 
 
 def pad_x(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """Flat f32 x zero-padded to cover every class's x reads: the panel
-    classes' x_padded_len and the stream classes' x_padded_len128."""
-    xp = torch.zeros(max(plan.x_padded_len, plan.x_padded_len128),
-                     dtype=torch.float32, device=x.device)
+    """f32 x, (n,) or (n, k), zero-padded along its rows to cover every
+    class's x reads: the panel classes' x_padded_len and the stream
+    classes' x_padded_len128."""
+    xp = torch.zeros((max(plan.x_padded_len, plan.x_padded_len128),)
+                     + x.shape[1:], dtype=torch.float32, device=x.device)
     xp[: plan.n] = x
     return xp
 
 
-def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-             stream) -> torch.Tensor:
-    """y = A @ x with the given class functions, in the reference's
-    class order (dense, band, W-classes, stream, stream2, residual).
-    One zero y serves every class: each adds into it."""
-    if x.shape != (plan.n,):
-        raise ValueError(f"x has shape {tuple(x.shape)}, "
-                         f"expected ({plan.n},)")
-    x = x.to(torch.float32)
-    xp = pad_x(plan, x)
+def _checked_x(plan: LanePlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
+    if x.dim() != ndim or x.shape[0] != plan.n:
+        want = "(n,)" if ndim == 1 else "(n, k)"
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected {want} "
+                         f"with n = {plan.n}")
+    return x.to(torch.float32)
+
+
+def _zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
+    """One zero y, (ylen,) or (ylen, k), spanning the panel classes' and
+    the stream classes' windows: every class adds into it."""
     ylen = plan.y_padded_len
     if plan.stream is not None:
         ylen = max(ylen, plan.n_stream_windows * RW_ROWS)
-    y = torch.zeros(ylen, dtype=torch.float32, device=x.device)
+    return torch.zeros((ylen,) + x.shape[1:], dtype=torch.float32,
+                       device=x.device)
+
+
+def _panel_classes(plan: LanePlan, xp, y, band, dense, sparse) -> None:
     if plan.dense is not None:
         dense(plan.dense, xp, y)
     if plan.band is not None:
         band(plan.band, xp, y)
     for s in plan.sparses:
         sparse(s, xp, y)
+
+
+def _residual(plan: LanePlan, x, y) -> None:
+    r = plan.residual
+    if r.val.shape[0]:
+        y.index_add_(0, r.row.long(), _rhs(r.val, x) * x[r.col.long()])
+
+
+def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
+             stream) -> torch.Tensor:
+    """y = A @ x with the given class functions, in the reference's
+    class order (dense, band, W-classes, stream, stream2, residual)."""
+    x = _checked_x(plan, x, 1)
+    xp = pad_x(plan, x)
+    y = _zero_y(plan, x)
+    _panel_classes(plan, xp, y, band, dense, sparse)
     for st in (plan.stream, plan.stream2):
         if st is not None:
             stream(st, xp, y)
-    r = plan.residual
-    if r.val.shape[0]:
-        y.index_add_(0, r.row.long(), r.val * x[r.col.long()])
+    _residual(plan, x, y)
+    return y[: plan.m]
+
+
+def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
+                stream2, stream) -> torch.Tensor:
+    """Y = A @ X for X (n, k) with the given class functions, in
+    spmm_pallas's order (tilespmv_tpu/ops/pallas/kernels.py:1069-1140):
+    dense, band, W-classes over all k RHS; the stream classes over RHS
+    pairs (r, r+1), stream2 after stream; an odd k's last column through
+    the single-RHS `stream` on a contiguous copy of that column; then
+    the residual."""
+    x = _checked_x(plan, x, 2)
+    k = x.shape[1]
+    xp = pad_x(plan, x)
+    y = _zero_y(plan, x)
+    _panel_classes(plan, xp, y, band, dense, sparse)
+    streams = [st for st in (plan.stream, plan.stream2) if st is not None]
+    for r in range(0, k - 1, 2):
+        for st in streams:
+            stream2(st, xp, y, r)
+    if k % 2 and streams:
+        xc = xp[:, k - 1].contiguous()
+        yc = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
+        for st in streams:
+            stream(st, xc, yc)
+        y[:, k - 1] += yc
+    _residual(plan, x, y)
     return y[: plan.m]
 
 
@@ -189,3 +271,11 @@ def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with the plain PyTorch class versions (any device)."""
     return assemble(plan, x, band_reference, dense_reference,
                     sparse_reference, stream_reference)
+
+
+def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X, X (n, k), with the plain PyTorch class versions (any
+    device)."""
+    return assemble_mm(plan, x, band_spmm_reference, dense_spmm_reference,
+                       sparse_spmm_reference, stream2_reference,
+                       stream_reference)

@@ -1,11 +1,13 @@
-"""Public SpMV operator.
+"""Public SpMV / SpMM operator.
 
 `TileSpMV` converts a matrix (CSR or an already-converted TileMatrix)
-into the lane-major execution plan and computes y = A @ x. It is an
+into the lane-major execution plan and computes y = A @ x (`forward`)
+and Y = A @ X for X (n, k) (`matmat`; `op @ x` takes either). It is an
 `nn.Module` whose plan arrays are registered buffers, so `.to(device)`
-moves the plan. On a CUDA device `forward` runs the hand-written class
-kernels (ops/cuda/kernels.py::spmv_cuda); on the CPU it runs their plain
-PyTorch versions (ops/cuda/reference.py::spmv_reference).
+moves the plan. On a CUDA device it runs the hand-written class kernels
+(ops/cuda/kernels.py::spmv_cuda / spmm_cuda); on the CPU it runs their
+plain PyTorch versions (ops/cuda/reference.py::spmv_reference /
+spmm_reference).
 """
 from __future__ import annotations
 
@@ -18,16 +20,18 @@ from torch import nn
 from ..core.convert import tile_create
 from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
-from .cuda.kernels import spmv_cuda
+from .cuda.kernels import SPMM_K, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
-from .cuda.reference import spmv_reference
+from .cuda.reference import spmm_reference, spmv_reference
 
 
 class TileSpMV(nn.Module):
-    """Tiled f32 SpMV operator.
+    """Tiled f32 SpMV / SpMM operator.
 
     >>> op = TileSpMV(csr, device="cuda")   # convert + plan + upload
     >>> y = op(x)                           # y = A @ x on op's device
+    >>> Y = op.matmat(X)                    # Y = A @ X, X (n, k)
+    >>> y, Y = op @ x, op @ X
     """
 
     def __init__(self, a: Union[CSRMatrix, TileMatrix],
@@ -40,6 +44,7 @@ class TileSpMV(nn.Module):
         plan = build_lane_plan(a)
         self.summary = plan.summary()
         self.nnz = plan.nnz
+        self._bytes_accessed = plan.bytes_accessed()
 
         def register(name, arr):
             self.register_buffer(name, torch.from_numpy(
@@ -62,14 +67,47 @@ class TileSpMV(nn.Module):
         """The plan with its arrays as this module's (device) buffers."""
         return map_arrays(self._skeleton, lambda n, _: getattr(self, n))
 
+    def flops(self) -> int:
+        """Floating-point operations of one SpMV: 2 * nnz."""
+        return 2 * self.nnz
+
+    def bytes_accessed(self) -> int:
+        """Plan bytes one SpMV streams (class payloads + x + y)."""
+        return self._bytes_accessed
+
+    def _run(self, x: torch.Tensor, cuda_fn, cpu_fn) -> torch.Tensor:
+        plan = self.device_plan()
+        if x.device.type == "cuda":
+            return cuda_fn(plan, x)
+        if x.device.type == "cpu":
+            return cpu_fn(plan, x)
+        raise ValueError(f"TileSpMV runs on CUDA or CPU, not {x.device}")
+
     def forward(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if x.shape != (self._skeleton.n,):
             raise ValueError(f"x has shape {tuple(x.shape)}, "
                              f"expected ({self._skeleton.n},)")
-        plan = self.device_plan()
-        if x.device.type == "cuda":
-            return spmv_cuda(plan, x)
-        if x.device.type == "cpu":
-            return spmv_reference(plan, x)
-        raise ValueError(f"TileSpMV runs on CUDA or CPU, not {x.device}")
+        return self._run(x, spmv_cuda, spmv_reference)
+
+    def matmat(self, x) -> torch.Tensor:
+        """Y = A @ X for X (n, k): the fused SpMM kernels for k in SPMM_K
+        (2..16), one SpMV per column otherwise, as the reference
+        dispatches (tilespmv_tpu/ops/spmv.py:69-89)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if x.dim() != 2 or x.shape[0] != self._skeleton.n:
+            raise ValueError(f"X has shape {tuple(x.shape)}, expected "
+                             f"({self._skeleton.n}, k)")
+        if x.shape[1] not in SPMM_K:
+            return torch.stack([self.forward(x[:, r])
+                                for r in range(x.shape[1])], dim=1)
+        return self._run(x, spmm_cuda, spmm_reference)
+
+    def __matmul__(self, x) -> torch.Tensor:
+        """op @ x: SpMV for 1-D x, SpMM for 2-D x."""
+        x = torch.as_tensor(x)
+        if x.dim() == 1:
+            return self(x)
+        if x.dim() == 2:
+            return self.matmat(x)
+        raise ValueError(f"op @ x needs x of rank 1 or 2, got {x.dim()}")
