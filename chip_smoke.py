@@ -33,7 +33,21 @@ Phases, each fatal on failure:
    version at k = 8 with a seeded uniform(-1, 1) X (one launch per
    class; the stream pair on RHS 0 and 1), with the phase-4 bound and
    times; and end to end per matrix at k = 8: matmat ms against 8 SpMV
-   calls and the plain matmat, GFLOPS = 2*nnz*k/t.
+   calls and the plain matmat, GFLOPS = 2*nnz*k/t;
+8. f64 — the trio planned through `TileSpMV(csr, device="cuda",
+   dtype=torch.float64)` (the reference's f64 routing, native-FP64
+   values), classes printed; one `op(x)` per matrix with bench.py's x as
+   float64 and the launch counters reset just before: band_f64,
+   dense_f64 and stream_f64 must have launched; every y gated against
+   the float64 CSR golden at max |y - golden| / (1 + |A|·|x|) <= 1e-12,
+   with that x and with a seeded uniform(-1, 1) x, and so are the .mtx
+   fixture and `matmat` at k = 3 on mixed_large (one f64 SpMV per
+   column); each f64 kernel against its plain version on every class of
+   its kind (band_f64 on banded_large, dense_f64 on mixed_large,
+   stream_f64 on powerlaw_large and mixed_large's split pair) within
+   1e-12 * max(1, max|plain|), with median times; end to end per matrix
+   f64 ms and GFLOPS for the kernel and plain paths and the ratio to
+   phase 5's f32 ms.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results, then the last line
@@ -55,6 +69,10 @@ FLAGSHIP = ("banded_large", "powerlaw_large", "mixed_large")
 KERNEL_TOL = 1e-5
 # end to end vs the float64 CSR golden (tests/test_pallas.py's bound)
 GOLD_RTOL, GOLD_ATOL = 2e-4, 1e-4
+# f64: kernel vs plain version (float64 atomics in any order), and
+# max |y - golden| / (1 + |A|·|x|) against the float64 golden
+KERNEL_TOL_F64 = 1e-12
+GOLD_TOL_F64 = 1e-12
 _SRC = "tilespmv_tpu_torch/ops/cuda/csrc/"
 _TPU = "tilespmv_tpu/ops/pallas/kernels.py:"
 # name: (source, TPU kernel it replaces, matrix whose plan runs it)
@@ -69,6 +87,13 @@ SPMM_KERNELS = {
     "dense_spmm": (_SRC + "dense_spmm.cu", _TPU + "1015", "mixed_large"),
     "sparse_spmm": (_SRC + "sparse_spmm.cu", _TPU + "1042", "mixed_large"),
     "stream2": (_SRC + "stream2.cu", _TPU + "1555", "powerlaw_large"),
+}
+# the f64 kernels: (source, TPU kernel arm, matrices whose plans run it)
+F64_KERNELS = {
+    "band_f64": (_SRC + "band.cu", _TPU + "545", ("banded_large",)),
+    "dense_f64": (_SRC + "dense.cu", _TPU + "378", ("mixed_large",)),
+    "stream_f64": (_SRC + "stream.cu", _TPU + "1926",
+                   ("powerlaw_large", "mixed_large")),
 }
 # right-hand sides of the SpMM phase's plan-level runs and comparisons
 K_MM = 8
@@ -151,7 +176,9 @@ def class_lists(plan) -> dict:
           "stream": [s for s in (plan.stream, plan.stream2)
                      if s is not None]}
     cl.update({"band_spmm": cl["band"], "dense_spmm": cl["dense"],
-               "sparse_spmm": cl["sparse"], "stream2": cl["stream"]})
+               "sparse_spmm": cl["sparse"], "stream2": cl["stream"],
+               "band_f64": cl["band"], "dense_f64": cl["dense"],
+               "stream_f64": cl["stream"]})
     return cl
 
 
@@ -171,59 +198,73 @@ def class_bytes(cls) -> int:
 
 
 def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
-                    k=None) -> list:
+                    k=None, tol=KERNEL_TOL) -> list:
     """Each kernel of `table` against its plain version on the card, on
-    all the classes of its kind in the plan of its matrix, with a seeded
-    uniform(-1, 1) x: one launch per class, the KERNEL_TOL bound, median
-    times. `k` None: SpMV (flat x and y); else SpMM with x (rows, k) and
-    y (ylen, k) (the stream pair on RHS 0 and 1). Returns the kernels'
-    JSON entries, `launches` being the main path's counts."""
-    import torch
-    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    all the classes of its kind in the plan of each of its matrices, with
+    a seeded uniform(-1, 1) x in the plan's dtype: one launch per class,
+    the `tol` bound, median times. `k` None: SpMV (flat x and y); else
+    SpMM with x (rows, k) and y (ylen, k) (the stream pair on RHS 0 and
+    1). Returns the kernels' JSON entries (errors the largest, times
+    those of the first matrix), `launches` being the main path's
+    counts."""
     results = []
-    for kname, (src, replaces, mname) in table.items():
-        plan = ops[mname].device_plan()
-        classes = class_lists(plan)[kname]
-        if not classes:
-            raise AssertionError(f"{mname}'s plan has no {kname} class")
-        rhs = () if k is None else (k,)
-        xr = np.random.default_rng(0).uniform(-1, 1, (csrs[mname].n,) + rhs)
-        xp = reference.pad_x(plan, torch.from_numpy(
-            xr.astype(np.float32)).to(dev))
-        ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
-        yk = torch.zeros((ylen,) + rhs, device=dev)
-        yp = torch.zeros((ylen,) + rhs, device=dev)
-        extra = (0,) if kname == "stream2" else ()
-
-        def run(fn, y):
-            for c in classes:
-                fn(c, xp, y, *extra)
-        before = kernels.launch_counts()[kname]
-        run(wrap[kname], yk)
-        run(plain[kname], yp)
-        torch.cuda.synchronize()
-        delta = kernels.launch_counts()[kname] - before
-        if delta != len(classes):
-            raise AssertionError(f"{kname}: {delta} launches for "
-                                 f"{len(classes)} classes")
-        err = float((yk - yp).abs().max())
-        bound = KERNEL_TOL * max(1.0, float(yp.abs().max()))
-        rel = float(((yk - yp).abs() / yp.abs().clamp(min=1e-30)).max())
-        if not err <= bound:
-            raise AssertionError(f"{kname}: max |kernel - plain| {err:.3e}"
-                                 f" > {bound:.3e}")
-        ms = cuda_ms(lambda: run(wrap[kname], yk), iters=20)
-        plain_ms = cuda_ms(lambda: run(plain[kname], yp), iters=3)
-        mb = sum(class_bytes(c) for c in classes) / 1e6
-        log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
-            f"{mb:.1f} MB of plan, launches +{delta}"
-            f"{'' if k is None else f', k {k}'}): max abs err {err:.3e} "
-            f"(bound {bound:.3e}), max rel err {rel:.3e}, {ms:.4f} ms "
-            f"({mb / ms:.0f} GB/s) vs plain {plain_ms:.4f} ms [{card}]")
+    for kname, (src, replaces, mnames) in table.items():
+        runs = [compare_on(dev, card, kname, wrap, plain, ops[m], csrs[m],
+                           m, k, tol)
+                for m in ((mnames,) if isinstance(mnames, str) else mnames)]
         results.append(dict(name=kname, route="cuda", source=src,
                             replaces=replaces, launches=launches[kname],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            max_abs_err=max(r[0] for r in runs),
+                            ms=runs[0][1], plain_ms=runs[0][2]))
+        if len(runs) > 1:
+            results[-1]["ms_by_matrix"] = {
+                m: r[1] for m, r in zip(mnames, runs)}
     return results
+
+
+def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
+               tol) -> tuple:
+    """compare_kernels on one matrix: (max abs err, ms, plain ms)."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    plan = op.device_plan()
+    classes = class_lists(plan)[kname]
+    if not classes:
+        raise AssertionError(f"{mname}'s plan has no {kname} class")
+    rhs = () if k is None else (k,)
+    xr = np.random.default_rng(0).uniform(-1, 1, (csr.n,) + rhs)
+    xp = reference.pad_x(plan, torch.from_numpy(xr).to(dev))
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    yk = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
+    yp = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
+    extra = (0,) if kname == "stream2" else ()
+
+    def run(fn, y):
+        for c in classes:
+            fn(c, xp, y, *extra)
+    before = kernels.launch_counts()[kname]
+    run(wrap[kname], yk)
+    run(plain[kname], yp)
+    torch.cuda.synchronize()
+    delta = kernels.launch_counts()[kname] - before
+    if delta != len(classes):
+        raise AssertionError(f"{kname}: {delta} launches for "
+                             f"{len(classes)} classes")
+    err = float((yk - yp).abs().max())
+    bound = tol * max(1.0, float(yp.abs().max()))
+    rel = float(((yk - yp).abs() / yp.abs().clamp(min=1e-30)).max())
+    if not err <= bound:
+        raise AssertionError(f"{kname}: max |kernel - plain| {err:.3e}"
+                             f" > {bound:.3e}")
+    ms = cuda_ms(lambda: run(wrap[kname], yk), iters=20)
+    plain_ms = cuda_ms(lambda: run(plain[kname], yp), iters=3)
+    mb = sum(class_bytes(c) for c in classes) / 1e6
+    log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
+        f"{mb:.1f} MB of plan, launches +{delta}"
+        f"{'' if k is None else f', k {k}'}): max abs err {err:.3e} "
+        f"(bound {bound:.3e}), max rel err {rel:.3e}, {ms:.4f} ms "
+        f"({mb / ms:.0f} GB/s) vs plain {plain_ms:.4f} ms [{card}]")
+    return err, ms, plain_ms
 
 
 def spmm_phase(dev, card, ops, csrs) -> list:
@@ -286,6 +327,103 @@ def spmm_phase(dev, card, ops, csrs) -> list:
             f"{flops / ms / 1e6:.2f} GFLOPS, {K_MM} x SpMV {spmv_ms:.4f} ms "
             f"{flops / spmv_ms / 1e6:.2f} GFLOPS, plain {plain_ms:.4f} ms "
             f"{flops / plain_ms / 1e6:.2f} GFLOPS [{card}]")
+    return results
+
+
+def gate64(name: str, csr, y: np.ndarray, x: np.ndarray) -> float:
+    """max |y - golden| / (1 + |A|·|x|) <= GOLD_TOL_F64 over the full y,
+    golden and |A|·|x| in float64; returns the measure."""
+    if y.shape != (csr.m,) or y.dtype != np.float64 \
+            or not np.isfinite(y).all():
+        raise AssertionError(f"{name}: y has shape {y.shape}, dtype "
+                             f"{y.dtype} or non-finite values")
+    rows = np.repeat(np.arange(csr.m), np.diff(csr.indptr))
+    mag = np.bincount(rows, weights=np.abs(csr.data * x[csr.indices]),
+                      minlength=csr.m)
+    err = float(np.max(np.abs(y - golden(csr, x)) / (1.0 + mag)))
+    if not err <= GOLD_TOL_F64:
+        raise AssertionError(f"{name}: max |y - golden| / (1 + |A||x|) "
+                             f"{err:.3e} > {GOLD_TOL_F64}")
+    return err
+
+
+def f64_phase(dev, card, csrs, f32_ms) -> list:
+    """Phase 8 (see the module doc); returns the f64 kernels' results."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV, load_mtx
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    ops = {}
+    for name in FLAGSHIP:
+        t0 = time.perf_counter()
+        ops[name] = TileSpMV(csrs[name], device=dev, dtype=torch.float64)
+        torch.cuda.synchronize()
+        log(f"plan f64 {name}: convert+plan+upload "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{ops[name].summary['plan_mbytes']} MB, "
+            f"{json.dumps(ops[name].summary['classes'])}")
+
+    # main path, bench.py's x as float64, counters reset just before
+    xs = {n: bench_x(csrs[n].n).astype(np.float64) for n in FLAGSHIP}
+    xd = {n: torch.from_numpy(xs[n]).to(dev) for n in FLAGSHIP}
+    kernels.reset_launch_counts()
+    ys = {n: ops[n](xd[n]) for n in FLAGSHIP}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"f64 main path launches: {launches}")
+    for name in F64_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "f64 path")
+    for n in FLAGSHIP:
+        err = gate64(f"f64 {n}", csrs[n], ys[n].cpu().numpy(), xs[n])
+        xu = np.random.default_rng(1).uniform(-1, 1, csrs[n].n)
+        erru = gate64(f"f64 {n} uniform x", csrs[n],
+                      ops[n](xu).cpu().numpy(), xu)
+        log(f"gate f64 {n}: ok, max |y - golden| / (1 + |A||x|) {err:.3e}"
+            f" (bench x), {erru:.3e} (uniform x)")
+
+    csr = load_mtx(str(pathlib.Path(__file__).resolve().parent / MTX))
+    x = bench_x(csr.n).astype(np.float64)
+    err = gate64(f"f64 {MTX}", csr, TileSpMV(
+        csr, device=dev, dtype=torch.float64)(x).cpu().numpy(), x)
+    log(f"gate f64 {MTX}: ok, {err:.3e}")
+
+    n = "mixed_large"
+    x = bench_xs(csrs[n].n, 3).astype(np.float64)
+    kernels.reset_launch_counts()
+    y = ops[n].matmat(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    cnt = kernels.launch_counts()
+    if y.shape != (csrs[n].m, 3) or not cnt["dense_f64"] or any(
+            cnt[s] for s in SPMM_KERNELS):
+        raise AssertionError(f"f64 matmat {n}: Y {tuple(y.shape)}, "
+                             f"launches {cnt}")
+    y = y.cpu().numpy()
+    errs = [gate64(f"f64 matmat {n} column {r}", csrs[n], y[:, r].copy(),
+                   x[:, r].copy()) for r in range(3)]
+    log(f"gate f64 matmat {n} (k 3): ok, {max(errs):.3e}, launches {cnt}")
+
+    # each f64 kernel against its plain version
+    wrap = {"band_f64": kernels.band_spmv, "dense_f64": kernels.dense_spmv,
+            "stream_f64": kernels.stream_spmv}
+    plain = {"band_f64": reference.band_reference,
+             "dense_f64": reference.dense_reference,
+             "stream_f64": reference.stream_reference}
+    results = compare_kernels(dev, card, F64_KERNELS, wrap, plain, ops,
+                              csrs, launches, tol=KERNEL_TOL_F64)
+
+    # end to end
+    for n in FLAGSHIP:
+        op, x = ops[n], xd[n]
+        plan = op.device_plan()
+        ms = cuda_ms(lambda: op(x))
+        plain_ms = cuda_ms(lambda: reference.spmv_reference(plan, x),
+                           iters=3)
+        flops = 2.0 * op.nnz
+        log(f"e2e f64 {n}: kernels {ms:.4f} ms {flops / ms / 1e6:.2f} "
+            f"GFLOPS, plain {plain_ms:.4f} ms {flops / plain_ms / 1e6:.2f} "
+            f"GFLOPS, f64 / f32 ms {ms / f32_ms[n]:.2f}, plan "
+            f"{op.summary['plan_mbytes']} MB [{card}]")
     return results
 
 
@@ -365,6 +503,7 @@ def main() -> int:
                               launches)
 
     # 5. end to end
+    f32_ms = {}
     for n in FLAGSHIP:
         op, x = ops[n], xs[n]
         plan = op.device_plan()
@@ -372,6 +511,7 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: reference.spmv_reference(plan, x),
                            iters=3)
         flops = 2.0 * op.nnz
+        f32_ms[n] = ms
         log(f"e2e {n}: kernels {ms:.4f} ms {flops / ms / 1e6:.2f} GFLOPS, "
             f"plain {plain_ms:.4f} ms {flops / plain_ms / 1e6:.2f} GFLOPS "
             f"[{card}]")
@@ -384,6 +524,7 @@ def main() -> int:
     log(f"mtx {MTX}: {csr.m}x{csr.n} nnz {csr.nnz} ok")
 
     results += spmm_phase(dev, card, ops, csrs)
+    results += f64_phase(dev, card, csrs, f32_ms)
 
     log(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

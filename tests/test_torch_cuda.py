@@ -5,7 +5,9 @@ it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance: max |kernel - plain| <= 1e-5 * max(1, max|plain|) — the
-order of float32 atomic adds varies from run to run."""
+order of float32 atomic adds varies from run to run; 1e-12 for the f64
+kernels (float64 atomics), whose operator is held to the float64 golden
+at max |y - golden| / (1 + |A|·|x|) <= 1e-12."""
 import numpy as np
 import pytest
 import torch
@@ -127,3 +129,54 @@ def test_spmm_kernels_match_plain_versions(name, k, device):
         want = np.stack([csr.matvec(xb[:, r].astype(np.float64))
                          for r in range(kk)], axis=1)
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
+
+
+F64_MATRICES = {
+    "band": lambda: generate.get_matrix("banded_medium"),
+    "dense_t256_stream": lambda: generate.mixed_structure(4096, 4096,
+                                                          seed=1),
+    "dense_stream_fp": lambda: generate.mixed_structure(512, 512, seed=7),
+    "stream": lambda: generate.power_law(4096, 4096, 12, seed=3),
+    "mixed_medium": lambda: generate.get_matrix("mixed_medium"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(F64_MATRICES))
+def test_f64_kernels_match_plain_versions(name, device):
+    csr = F64_MATRICES[name]()
+    op = TileSpMV(csr, device=device, dtype=torch.float64)
+    plan = op.device_plan()
+    assert not plan.sparses
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, csr.n)).to(device)
+    xp = reference.pad_x(plan, x)
+    assert xp.dtype == torch.float64
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    ran = 0
+    for kind in ("band", "dense", "stream"):
+        for cls in _classes(plan)[kind]:
+            if cls is None:
+                continue
+            wrap, plain = PAIRS[kind]
+            yk = torch.zeros(ylen, dtype=torch.float64, device=device)
+            yp = torch.zeros(ylen, dtype=torch.float64, device=device)
+            before = kernels.launch_counts()
+            wrap(cls, xp, yk)
+            after = kernels.launch_counts()
+            assert after[kind + "_f64"] == before[kind + "_f64"] + 1
+            assert after[kind] == before[kind]
+            plain(cls, xp, yp)
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max())
+            assert err <= 1e-12 * max(1.0, float(yp.abs().max())), kind
+            ran += 1
+    assert ran
+    # end to end against the float64 golden
+    xs = x.cpu().numpy()
+    rows = np.repeat(np.arange(csr.m), np.diff(csr.indptr))
+    prod = csr.data * xs[csr.indices]
+    gold = np.bincount(rows, weights=prod, minlength=csr.m)
+    mag = np.bincount(rows, weights=np.abs(prod), minlength=csr.m)
+    y = op(x)
+    assert y.dtype == torch.float64
+    assert np.max(np.abs(y.cpu().numpy() - gold) / (1 + mag)) <= 1e-12

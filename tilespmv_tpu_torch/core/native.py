@@ -99,6 +99,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ]
         lib.sp_scalars.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.sp_export.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 6
+        lib.sp_export_vlo.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.sp_export_sb2.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.sp_export_cw.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.sp_export_loads.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -254,13 +255,15 @@ def analyze(m: int, n: int, indptr: np.ndarray, indices: np.ndarray,
 
 
 def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
-                m: int, span_rows: int = 64,
-                dual: bool = False) -> Optional[dict]:
-    """Run the native f32 stream-plan builder (native/streamplan.cpp),
+                m: int, span_rows: int = 64, dual: bool = False,
+                want_lo: bool = False) -> Optional[dict]:
+    """Run the native stream-plan builder (native/streamplan.cpp),
     slabs per step picked by its cost model; returns the raw plan
-    arrays or None when unavailable. `dual` builds the dual-span slab
-    packing (sbase2 exported; exact lockstep with
-    stream_plan._build_dual)."""
+    arrays or None when unavailable. `val` is the f32 rounding of each
+    value; `want_lo` also exports `val_lo`, the f32 rounding of the
+    remainder (val + val_lo is the value the f64 plan holds). `dual`
+    builds the dual-span slab packing (sbase2 exported; exact lockstep
+    with stream_plan._build_dual)."""
     lib = get_lib()
     if lib is None:
         return None
@@ -269,8 +272,8 @@ def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
     val64 = np.ascontiguousarray(val, dtype=np.float64)
     nz = g_row.shape[0]
     h = lib.sp_build(nz, g_row.ctypes.data, g_col.ctypes.data,
-                     val64.ctypes.data, m, 0, int(span_rows), 0,
-                     int(bool(dual)))
+                     val64.ctypes.data, m, 0, int(span_rows),
+                     int(bool(want_lo)), int(bool(dual)))
     if not h:
         return None
     try:
@@ -291,6 +294,9 @@ def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
             h, out["val"].ctypes.data, out["vidx"].ctypes.data,
             out["planes"].ctypes.data, out["sbase"].ctypes.data,
             out["cw"].ctypes.data, out["cfirst"].ctypes.data)
+        if want_lo:
+            out["val_lo"] = np.zeros((nslabs, 8, 128), np.float32)
+            lib.sp_export_vlo(h, out["val_lo"].ctypes.data)
         if dual:
             out["sbase2"] = np.zeros(nslabs, np.int32)
             lib.sp_export_sb2(h, out["sbase2"].ctypes.data)
@@ -301,9 +307,10 @@ def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
 
 def stream_plan_classes(g_row: np.ndarray, g_col: np.ndarray,
                         val: np.ndarray, m: int, span_rows: int = 64,
-                        dual: bool = False,
-                        split_fn=None) -> Optional[list]:
-    """Native build + fused per-class export of the f32 stream plan.
+                        dual: bool = False, split_fn=None,
+                        want_lo: bool = False) -> Optional[list]:
+    """Native build + fused per-class export of the stream plan (with
+    each class's `val_lo` when `want_lo`, as stream_plan exports it).
 
     Builds once at slabs-per-step 1 (minimal builder padding), decides
     the two-rate split with `split_fn(wcnt) -> (s1, s2, heavy_mask)`
@@ -323,8 +330,8 @@ def stream_plan_classes(g_row: np.ndarray, g_col: np.ndarray,
     val64 = np.ascontiguousarray(val, dtype=np.float64)
     nz = g_row.shape[0]
     h = lib.sp_build(nz, g_row.ctypes.data, g_col.ctypes.data,
-                     val64.ctypes.data, m, 1, int(span_rows), 0,
-                     int(bool(dual)))
+                     val64.ctypes.data, m, 1, int(span_rows),
+                     int(bool(want_lo)), int(bool(dual)))
     if not h:
         return None
     try:
@@ -363,13 +370,17 @@ def stream_plan_classes(g_row: np.ndarray, g_col: np.ndarray,
                                 np.int8),
                 sbase=np.empty(tot, np.int32),
             )
+            vlo_p = None
+            if want_lo:
+                out["val_lo"] = np.empty((tot, 8, 128), np.float32)
+                vlo_p = out["val_lo"].ctypes.data
             sb2_p = None
             if dual:
                 out["sbase2"] = np.empty(tot, np.int32)
                 sb2_p = out["sbase2"].ctypes.data
             lib.sp_export_class(
                 h, src.ctypes.data, tot, int(s), rounds,
-                out["val"].ctypes.data, None,
+                out["val"].ctypes.data, vlo_p,
                 out["vidx"].ctypes.data, out["planes"].ctypes.data,
                 out["sbase"].ctypes.data, sb2_p)
             win_full = np.repeat(sel_w, padded)

@@ -30,6 +30,9 @@ ENTRY_POINTS = {
     "tsp_dense": [_P] * 6 + [_I] * 4 + [_P],
     "tsp_sparse": [_P] * 6 + [_I] * 5 + [_P],
     "tsp_stream": [_P] * 10 + [_I] * 4 + [_P],
+    "tsp_band_f64": [_P] * 6 + [_I] * 3 + [_P],
+    "tsp_dense_f64": [_P] * 6 + [_I] * 4 + [_P],
+    "tsp_stream_f64": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_spmm": [_P] * 6 + [_I] * 4 + [_P],
     "tsp_dense_spmm": [_P] * 6 + [_I] * 5 + [_P],
     "tsp_sparse_spmm": [_P] * 6 + [_I] * 6 + [_P],

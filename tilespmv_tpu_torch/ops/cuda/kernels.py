@@ -2,17 +2,21 @@
 assemble.
 
 Each SpMV wrapper `*_spmv(cls, x, y)` checks its inputs and adds its
-class's contribution into the flat f32 `y` in place (see reference.py
-for the index arithmetic); each SpMM wrapper (`band_spmm`, `dense_spmm`,
+class's contribution into the flat `y` in place (see reference.py for
+the index arithmetic), in the dtype of the class's `val`, which x and y
+share: float32, or float64 for the band, dense and stream classes of an
+f64 plan (the `*_f64` kernels); each SpMM wrapper (`band_spmm`, `dense_spmm`,
 `sparse_spmm` for k in SPMM_K, `stream_spmm2` for one RHS pair) does the
-same for x (rows, k) and y (ylen, k), row-major. `x` must be padded by
+same for x (rows, k) and y (ylen, k), row-major, in float32 (an f64
+operator runs one SpMV per column). `x` must be padded by
 `reference.pad_x` and `y` span the plan's windows, as
 `reference.assemble` / `assemble_mm` allocate them: the kernels index
 both from plan values. Given CPU tensors a wrapper runs the
 class's plain PyTorch version; given CUDA tensors it launches the kernel
 on the current stream (building the library on first use) or raises.
-`LAUNCHES` counts kernel launches per wrapper; it moves only where a
-kernel is launched.
+`LAUNCHES` counts kernel launches per kernel (`band` the f32 band
+kernel, `band_f64` the f64 one, ...); it moves only where a kernel is
+launched.
 """
 from __future__ import annotations
 
@@ -33,7 +37,10 @@ from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 # reference fuses (tilespmv_tpu/ops/spmv.py:84)
 SPMM_K = range(2, 17)
 LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
-            "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0}
+            "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0,
+            "band_f64": 0, "dense_f64": 0, "stream_f64": 0}
+# value dtypes of the SpMV kernels: (LAUNCHES suffix, C entry suffix)
+_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def reset_launch_counts() -> None:
@@ -70,9 +77,19 @@ def _use_kernel(y: torch.Tensor) -> bool:
     return True
 
 
-def _check_xy(x, y) -> None:
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError("x and y must be float32")
+def _value_dtype(val) -> torch.dtype:
+    """The class's value dtype (float32 or float64), which x and y must
+    share."""
+    if not isinstance(val, torch.Tensor) or val.dtype not in _SUFFIX:
+        raise TypeError(f"class values: {getattr(val, 'dtype', val)}, "
+                        f"expected one of {tuple(_SUFFIX)}")
+    return val.dtype
+
+
+def _check_xy(x, y, dtype=torch.float32) -> None:
+    if x.dtype != dtype or y.dtype != dtype:
+        raise TypeError(f"x and y must be {dtype} like the class values, "
+                        f"got {x.dtype} and {y.dtype}")
     if x.dim() != 1 or y.dim() != 1 or not x.is_contiguous() \
             or not y.is_contiguous():
         raise ValueError("x and y must be contiguous 1-D tensors")
@@ -116,22 +133,21 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _check_band(bd, dev) -> tuple:
+def _check_band(bd, dev, dtype=torch.float32) -> tuple:
     nch, C = bd.val.shape[0], bd.val.shape[1]
-    _check("band.val", bd.val, torch.float32, (nch, C, 16, 16, ROW_WINDOW),
-           dev)
+    _check("band.val", bd.val, dtype, (nch, C, 16, 16, ROW_WINDOW), dev)
     _check("band.bloc", bd.bloc, torch.int32, (nch, 1, ROW_WINDOW), dev)
     _check("pb", bd.pb, torch.int32, (nch * bd.k_panels,), dev)
     _check("band.cw", bd.cw, torch.int32, (nch,), dev)
     return nch, C
 
 
-def _check_dense(d, dev) -> int:
+def _check_dense(d, dev, dtype=torch.float32) -> int:
     nch, T = d.val.shape[0], d.t_lanes
     if nch % d.c_batch:
         raise ValueError("dense: chunk count not a multiple of c_batch")
     nsteps = nch // d.c_batch
-    _check("dense.val", d.val, torch.float32, (nch, 16, 16, T), dev)
+    _check("dense.val", d.val, dtype, (nch, 16, 16, T), dev)
     _check("dense.meta", d.meta, torch.int32, (nch, 2, T), dev)
     _check("pb", d.pb, torch.int32, (nsteps * d.k_panels,), dev)
     _check("dense.cw", d.cw, torch.int32, (nsteps,), dev)
@@ -151,11 +167,11 @@ def _check_sparse(s, dev) -> int:
     return nch
 
 
-def _check_stream(st, dev) -> int:
+def _check_stream(st, dev, dtype=torch.float32) -> int:
     S, R = st.s_batch, st.rounds
     nsteps = st.cw.shape[0]
     nsl = nsteps * S
-    _check("stream.val", st.val, torch.float32, (nsl, SUBS, LANES), dev)
+    _check("stream.val", st.val, dtype, (nsl, SUBS, LANES), dev)
     _check("stream.vidx", st.vidx, torch.int16, (nsl, SUBS, LANES), dev)
     _check("stream.planes", st.planes, torch.int8,
            (nsteps, step_plane_rows(R, S), LANES), dev)
@@ -178,28 +194,34 @@ def _stream_args(st, x, y, nsteps) -> tuple:
 
 
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums."""
-    _check_xy(x, y)
-    nch, C = _check_band(bd, y.device)
+    """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums
+    (f32 or f64)."""
+    dt = _value_dtype(bd.val)
+    _check_xy(x, y, dt)
+    nch, C = _check_band(bd, y.device, dt)
     if not _use_kernel(y):
         return band_reference(bd, x, y)
-    err = build.load().tsp_band(
+    name = "band" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
         nch, C, bd.k_panels, _stream())
-    _launched("band", err)
+    _launched(name, err)
     return y
 
 
 def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Dense class: densified 16x16 tiles, routed by meta[LROW]."""
-    _check_xy(x, y)
-    nch = _check_dense(d, y.device)
+    """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32 or
+    f64)."""
+    dt = _value_dtype(d.val)
+    _check_xy(x, y, dt)
+    nch = _check_dense(d, y.device, dt)
     if not _use_kernel(y):
         return dense_reference(d, x, y)
-    err = build.load().tsp_dense(
+    name = "dense" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
         nch, d.t_lanes, d.k_panels, d.c_batch, _stream())
-    _launched("dense", err)
+    _launched(name, err)
     return y
 
 
@@ -217,14 +239,17 @@ def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def stream_spmv(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Stream class: entry slabs, lane prefix + round-plane scatter."""
-    _check_xy(x, y)
-    nsteps = _check_stream(st, y.device)
+    """Stream class: entry slabs, lane prefix + round-plane scatter (f32
+    or f64)."""
+    dt = _value_dtype(st.val)
+    _check_xy(x, y, dt)
+    nsteps = _check_stream(st, y.device, dt)
     if not _use_kernel(y):
         return stream_reference(st, x, y)
-    err = build.load().tsp_stream(*_stream_args(st, x, y, nsteps),
-                                  _stream())
-    _launched("stream", err)
+    name = "stream" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
+        *_stream_args(st, x, y, nsteps), _stream())
+    _launched(name, err)
     return y
 
 
@@ -285,8 +310,9 @@ def stream_spmm2(st, x: torch.Tensor, y: torch.Tensor,
 
 
 def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through the class kernels (plan tensors and x on one
-    CUDA device; on CPU tensors every class runs its plain version)."""
+    """y = A @ x through the class kernels, in the plan's dtype (plan
+    tensors and x on one CUDA device; on CPU tensors every class runs
+    its plain version)."""
     return assemble(plan, x, band_spmv, dense_spmv, sparse_spmv,
                     stream_spmv)
 
@@ -294,6 +320,10 @@ def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
 def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n, k) with k in SPMM_K, through the fused SpMM
     kernels (an odd k's last column through the SpMV stream kernel); on
-    CPU tensors every class runs its plain version."""
+    CPU tensors every class runs its plain version. f32 plans only."""
+    if plan.dtype != torch.float32:
+        raise TypeError(f"the fused SpMM kernels take f32 plans, not "
+                        f"{plan.dtype} (an f64 operator runs one SpMV "
+                        "per column)")
     return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
                        stream_spmm2, stream_spmv)

@@ -1,8 +1,9 @@
-"""Lane-major chunked execution plan (f32), as NumPy arrays.
+"""Lane-major chunked execution plan (f32 or f64), as NumPy arrays.
 
 NumPy port of tilespmv_tpu/ops/pallas/lane_plan.py, held bit-equal to
-it by tests/test_torch_plan.py, so both frameworks execute the very
-same plan. The classes and their layouts are the reference package's:
+it by tests/test_torch_plan.py (f32) and tests/test_torch_f64_plan.py
+(f64), so both frameworks execute the very same plan. The classes and
+their layouts are the reference package's:
 
 * the **band (brick) class** — tile-row stripes whose non-COO tiles
   span at most BAND_MAX_COLS consecutive tile-columns become dense
@@ -20,9 +21,18 @@ x is addressed through 256-tile-column *panels*: a chunk lane's x block
 starts at flat index (pb[step*K + (loc >> 8)] * 256 + (loc & 255)) * 16
 with loc = meta[XLOC] (dense, W) or bloc + column block (band).
 
+`build_lane_plan(tm, compute_dtype=np.float64)` makes the reference's
+f64 routing decisions (no W-classes: every non-band tile densifies; a
+tile in a (window, round) group thinner than DF64_ROUND_FILL_MIN runs in
+the stream class as entries; the dense class is cut into unique-row
+rounds) with every index and control array bit-equal to the reference's
+f64 plan. Its value arrays keep the f32 layouts with float64 values:
+each is the reference's double-f32 parts summed in f64
+(stream_plan.f64_plan_value), so the kernels compute in native FP64.
+
 The routing and chunking cost constants are the reference planner's
 (measured on its own device). They are kept unchanged so the plans stay
-identical; re-fitting them to the H100 is later work. df64 and the
+identical; re-fitting them to the H100 is later work. The
 distributed-layer options (force_t, forced s_batch) are not ported.
 """
 from __future__ import annotations
@@ -35,7 +45,7 @@ import numpy as np
 from ...core.tile_matrix import TileMatrix
 from ..plan import ResidualEngine
 from .stream_plan import (MAX_SPAN_ROWS, RW_ROWS, SPAN_ROWS, StreamChunks,
-                          build_stream_classes)
+                          build_stream_classes, f64_plan_value)
 from . import stream_plan as sp
 
 T_CHOICES = (128, 256, 512)   # tiles per chunk (lane-dim width classes)
@@ -56,6 +66,9 @@ COO_SPARSE_MIN_AVG = 4.0
 # window-sparse COO populations leave the stream engine when the absorb
 # estimate beats the stream estimate by this factor
 STREAM_ABSORB_MARGIN = 0.7
+# f64 plans densify a (window, round) tile group only when it fills this
+# many of a chunk's lanes; deeper tiles run as stream entries
+DF64_ROUND_FILL_MIN = 12
 
 # dense-class meta rows (int32): x location and window-local tile row
 META_XLOC = 0
@@ -93,7 +106,7 @@ class DenseChunks:
     """Densified-tile class: (nchunks, 16, 16, T) value blocks, j-major
     ([c, j, i, t] = tile t's entry (i, j)). `cw`/`cfirst` are per step
     (`c_batch` same-window chunks)."""
-    val: Any       # (nchunks, 16, 16, T) f32
+    val: Any       # (nchunks, 16, 16, T) f32 or f64
     meta: Any      # (nchunks, DENSE_MROWS, T) int32
     pb: Any        # (nsteps*K,) int32 x panel ids
     cw: Any        # (nsteps,) int32 output window id
@@ -108,7 +121,7 @@ class DenseChunks:
 class BandChunks:
     """Brick class: one chunk per output window, lane = tile-row; val
     holds C j-major (16, T) column slabs per brick."""
-    val: Any       # (nchunks, C, 16, 16, T): [w, col_blk, j, i, t]
+    val: Any       # (nchunks, C, 16, 16, T) f32 or f64: [w, cb, j, i, t]
     bloc: Any      # (nchunks, 1, T) int32: panel-slot*256 + col offset
     pb: Any        # (nchunks*K,) int32 panel ids
     cw: Any        # (nchunks,) int32
@@ -176,8 +189,14 @@ class LanePlan:
     def n_stream_windows(self) -> int:
         return max(1, -(-self.m // RW_ROWS))
 
+    @property
+    def dtype(self):
+        """The plan's value dtype (float32 or float64): that of x and y."""
+        return self.residual.val.dtype
+
     def bytes_accessed(self) -> int:
-        """Plan bytes one SpMV streams (class payloads + x + y)."""
+        """Plan bytes one SpMV streams (class payloads + x + y, of the
+        plan's value dtype)."""
         def nbytes(a):
             return int(np.prod(a.shape)) * a.dtype.itemsize
         total = 0
@@ -193,12 +212,13 @@ class LanePlan:
                           + nbytes(st.planes))
         total += (nbytes(self.residual.val) + nbytes(self.residual.row)
                   + nbytes(self.residual.col))
-        total += self.x_padded_len * 4 + self.m * 4
+        total += (self.x_padded_len + self.m) * self.dtype.itemsize
         return total
 
     def summary(self) -> dict:
         """Static per-class plan statistics."""
         s: dict = dict(m=self.m, n=self.n, nnz=self.nnz,
+                       dtype=str(self.dtype).replace("torch.", ""),
                        plan_mbytes=round(self.bytes_accessed() / 1e6, 2),
                        classes=[])
         if self.dense is not None:
@@ -470,7 +490,8 @@ def _pick_t(trow: np.ndarray, tcol: np.ndarray, tilem: int) -> int:
 
 
 def _chunk_metadata(trow: np.ndarray, tcol: np.ndarray, tilem: int,
-                    t_lanes: int, k_panels: int, c_batch: int = 1):
+                    t_lanes: int, k_panels: int, c_batch: int = 1,
+                    unique_rows: bool = False):
     """Cut row-window-local steps of `c_batch` chunks x `t_lanes` tiles
     over <= `k_panels` distinct x panels per step.
 
@@ -478,7 +499,10 @@ def _chunk_metadata(trow: np.ndarray, tcol: np.ndarray, tilem: int,
     tile-rows, tiles are re-sorted by tile-column and packed greedily: a
     step closes after c_batch*t_lanes tiles or when it would need a
     (k_panels+1)-th distinct x panel; the step's tiles are then split
-    into c_batch chunks (trailing chunks inert). Returns per-step
+    into c_batch chunks (trailing chunks inert). `unique_rows` (f64
+    plans) first deals each window's tiles into rounds, the k-th tile of
+    a tile-row to round k, and closes a step at every round boundary, so
+    a step holds at most one tile per tile-row. Returns per-step
     cw/cfirst, the (nchunks, T) source permutation (`src`, -1 = inert
     lane), the flat (nsteps*K,) panel ids, and xloc/lrow planes (xloc =
     panel-slot * 256 + column-within-panel, -1 on inert lanes)."""
@@ -493,12 +517,28 @@ def _chunk_metadata(trow: np.ndarray, tcol: np.ndarray, tilem: int,
         sel = np.nonzero(win_of_tile == w)[0]
         nst = 0
         if sel.size:
-            order = np.argsort(tcol[sel], kind="stable")
+            if unique_rows:
+                tr_w = trow[sel]                   # sorted (trow, tcol)
+                new_r = np.ones(sel.size, bool)
+                new_r[1:] = tr_w[1:] != tr_w[:-1]
+                grp = np.maximum.accumulate(
+                    np.where(new_r, np.arange(sel.size), 0))
+                occ = np.arange(sel.size) - grp    # round of each tile
+                order = np.lexsort((tcol[sel], occ))
+            else:
+                order = np.argsort(tcol[sel], kind="stable")
             s = sel[order]
             pan = tcol[s] >> 8
             newp = np.ones(s.size, bool)
             newp[1:] = pan[1:] != pan[:-1]
             prank = np.cumsum(newp) - 1
+            if unique_rows:
+                # spend the whole panel budget at a round boundary, so
+                # the searchsorted below closes the step there
+                occ_s = occ[order]
+                rb = np.zeros(s.size, np.int64)
+                rb[1:] = occ_s[1:] != occ_s[:-1]
+                prank = prank + np.cumsum(rb) * K
             start = 0
             while start < s.size:
                 # close at cap tiles or at the K-th new panel
@@ -605,8 +645,10 @@ def _pack_sparse_class(trow, tcol, counts, r, c, v, width: int,
         width=W, t_lanes=T, k_panels=K, c_batch=cb), md["n_windows"]
 
 
-def _select_band(trow, tcol, counts, tilem, n_windows, er, ec, ev):
-    """Pick brick-able stripes and pack them; returns (BandChunks | None,
+def _select_band(trow, tcol, counts, tilem, n_windows, er, ec, ev,
+                 cdt=np.dtype(np.float32)):
+    """Pick brick-able stripes and pack them with `cdt` values (f64:
+    f64_plan_value of the f64 sums); returns (BandChunks | None,
     selected-tile mask)."""
     T = ROW_WINDOW
     nt = trow.shape[0]
@@ -643,7 +685,7 @@ def _select_band(trow, tcol, counts, tilem, n_windows, er, ec, ev):
         return None, None
 
     nchunks = n_windows
-    val = np.zeros((nchunks, C, 16, 16, T), np.float32)
+    val = np.zeros((nchunks, C, 16, 16, T), cdt)
     bloc = np.zeros((nchunks, 1, T), np.int32)
     pb = np.zeros((nchunks, BAND_K), np.int32)
     base_of_stripe = np.zeros(tilem + 1, np.int64)
@@ -673,7 +715,9 @@ def _select_band(trow, tcol, counts, tilem, n_windows, er, ec, ev):
     win = trow[et] // T
     lane = trow[et] % T
     np.add.at(val, (win, cbv, ec[e_sel], er[e_sel], lane),
-              ev[e_sel].astype(np.float32))
+              ev[e_sel].astype(cdt))
+    if cdt == np.dtype(np.float64):
+        val = f64_plan_value(val)
 
     band = BandChunks(
         val=val, bloc=bloc, pb=pb.reshape(-1),
@@ -738,24 +782,31 @@ def _coo_absorb_cost_ns(ctr: np.ndarray, ctc: np.ndarray,
     return cost
 
 
-def build_lane_plan(tm: TileMatrix) -> LanePlan:
-    """Compile a TileMatrix into the f32 lane-major plan (NumPy arrays).
-    COO tiles go to the entry-level stream engine by entry count,
-    per-tile density and the absorb-vs-stream cost estimate."""
+def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
+    """Compile a TileMatrix into the lane-major plan (NumPy arrays) for
+    `compute_dtype` float32 or float64 (see the module doc for the f64
+    routing). COO tiles go to the entry-level stream engine by entry
+    count, per-tile density and the absorb-vs-stream cost estimate."""
     b = tm.config.tile_size
     if b != 16:
         raise NotImplementedError("the lane plan requires tile_size=16")
+    cdt = np.dtype(compute_dtype)
+    if cdt not in (np.dtype(np.float32), np.dtype(np.float64)):
+        raise ValueError(f"compute_dtype {cdt}: float32 or float64")
+    f64 = cdt == np.dtype(np.float64)
 
     trow, tcol, counts, er, ec, ev = _all_entries(tm)
     n_windows = max(1, -(-tm.tilem // ROW_WINDOW))
 
     # --- COO tiles: the entry-level stream engine when they are many and
-    # near-singleton; otherwise they join the per-tile routing below
+    # near-singleton; otherwise they join the per-tile routing below.
+    # f64 decides as f32 does (the reference's f64 routing)
     bk = tm.coo
     coo_entries = int(bk.val.shape[0]) if bk.num_tiles else 0
     coo_avg = coo_entries / max(1, bk.num_tiles) if bk.num_tiles else 0.0
     use_stream = (coo_entries >= STREAM_MIN_ENTRIES
                   and coo_avg < COO_SPARSE_MIN_AVG)
+    span_rows = dual = None
     if use_stream:
         ccounts0 = np.diff(bk.nnz_ptr)
         owner0 = np.repeat(np.arange(bk.num_tiles), ccounts0)
@@ -770,6 +821,8 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
         ctc0 = tm.tile_columnidx[bk.tile_ids].astype(np.int64)
         absorb_ns = _coo_absorb_cost_ns(ctr0, ctc0, ccounts0, tm.tilem)
         use_stream = absorb_ns >= STREAM_ABSORB_MARGIN * stream_ns
+        if not use_stream:
+            span_rows = dual = None
     if not use_stream and bk.num_tiles:
         ccounts = np.diff(bk.nnz_ptr)
         ctr = tm.tile_rowidx[bk.tile_ids].astype(np.int64)
@@ -795,7 +848,7 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
     band = None
     if trow.size:
         band, band_tile_mask = _select_band(trow, tcol, counts, tm.tilem,
-                                            n_windows, er, ec, ev)
+                                            n_windows, er, ec, ev, cdt)
         if band is not None:
             esel = ~band_tile_mask[np.repeat(np.arange(trow.shape[0]),
                                              counts)]
@@ -803,8 +856,37 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
                 trow[~band_tile_mask], tcol[~band_tile_mask],
                 counts[~band_tile_mask], er[esel], ec[esel], ev[esel])
 
-    # --- execution routing: per tile, dense block vs sparse-entry class
-    widx = _route_classes(counts)
+    # --- execution routing: per tile, dense block vs sparse-entry class.
+    # f64: every tile densifies, except the tiles of (window, round)
+    # groups thinner than DF64_ROUND_FILL_MIN, which join the stream as
+    # entries (h_w[r], the rows of window w with > r tiles, falls with
+    # r, so this keeps each window's well-filled leading rounds)
+    deep_rows = deep_cols = np.zeros(0, np.int64)
+    deep_vals = np.zeros(0, np.float64)
+    if f64:
+        if counts.size:
+            win = trow // ROW_WINDOW
+            new_r = np.ones(trow.size, bool)
+            new_r[1:] = trow[1:] != trow[:-1]
+            grp = np.maximum.accumulate(
+                np.where(new_r, np.arange(trow.size), 0))
+            occ = np.arange(trow.size) - grp
+            key = win * (int(occ.max()) + 1) + occ
+            _, inv, kcnt = np.unique(key, return_inverse=True,
+                                     return_counts=True)
+            deep = kcnt[inv] < DF64_ROUND_FILL_MIN
+            if deep.any():
+                eo = np.repeat(np.arange(trow.shape[0]), counts)
+                edeep = deep[eo]
+                deep_rows = trow[eo][edeep] * b + er[edeep]
+                deep_cols = tcol[eo][edeep] * b + ec[edeep]
+                deep_vals = ev[edeep].astype(np.float64)
+                trow, tcol, counts = (trow[~deep], tcol[~deep],
+                                      counts[~deep])
+                er, ec, ev = er[~edeep], ec[~edeep], ev[~edeep]
+        widx = np.full(counts.shape, len(W_CHOICES), np.int64)
+    else:
+        widx = _route_classes(counts)
     dense_mask = widx >= len(W_CHOICES)
 
     entry_owner = np.repeat(np.arange(trow.shape[0]), counts)
@@ -815,12 +897,29 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
         blocks = _densify(trow[sel], tcol[sel], counts[sel],
                           er[esel], ec[esel], ev[esel], b)
         dtr, dtc = trow[sel], tcol[sel]
-        t_lanes = _pick_t(dtr, dtc, tm.tilem)
-        chunk_bytes = (16 * 16 * t_lanes + DENSE_MROWS * t_lanes) * 4
-        kp = _pick_k(dtr, dtc, t_lanes)
-        cb = _pick_cb(dtr, dtc, tm.tilem, t_lanes, kp, chunk_bytes)
-        kp = _pick_k(dtr, dtc, cb * t_lanes)
-        md = _chunk_metadata(dtr, dtc, tm.tilem, t_lanes, kp, cb)
+        if f64:
+            # unique-row rounds bound a step's fill by tiles / rounds,
+            # a window's rounds being its most tiles in one tile-row
+            uniq_tr, c_tr = np.unique(dtr, return_counts=True)
+            uw = uniq_tr // ROW_WINDOW
+            first = np.ones(uw.size, bool)
+            first[1:] = uw[1:] != uw[:-1]
+            rounds = np.maximum.reduceat(
+                c_tr, np.nonzero(first)[0]).sum()
+            per_step = dtr.size / max(1, int(rounds))
+            t_lanes = next(
+                (t for t in reversed(T_CHOICES) if per_step >= 0.75 * t),
+                T_CHOICES[0])
+            cb = max(1, min(8, int(per_step / t_lanes + 0.5)))
+            kp = _pick_k(dtr, dtc, cb * t_lanes)
+        else:
+            t_lanes = _pick_t(dtr, dtc, tm.tilem)
+            chunk_bytes = (16 * 16 * t_lanes + DENSE_MROWS * t_lanes) * 4
+            kp = _pick_k(dtr, dtc, t_lanes)
+            cb = _pick_cb(dtr, dtc, tm.tilem, t_lanes, kp, chunk_bytes)
+            kp = _pick_k(dtr, dtc, cb * t_lanes)
+        md = _chunk_metadata(dtr, dtc, tm.tilem, t_lanes, kp, cb,
+                             unique_rows=f64)
         valid = md["valid"]
         safe = np.where(valid, md["src"], 0)
         vt = blocks[safe]                   # (nchunks, T, b_i, b_j) f64
@@ -831,9 +930,9 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
         meta[:, META_XLOC] = md["xloc"]
         meta[:, META_LROW] = md["lrow"]
         dense = DenseChunks(
-            val=vt.astype(np.float32), meta=meta, pb=md["pb"],
-            cw=md["cw"], cfirst=md["cfirst"], t_lanes=t_lanes,
-            k_panels=kp, c_batch=cb)
+            val=f64_plan_value(vt) if f64 else vt.astype(np.float32),
+            meta=meta, pb=md["pb"], cw=md["cw"], cfirst=md["cfirst"],
+            t_lanes=t_lanes, k_panels=kp, c_batch=cb)
         n_windows = max(n_windows, md["n_windows"])
 
     sparses = []                      # ascending width
@@ -849,12 +948,19 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
         sparses.append(sc)
         n_windows = max(n_windows, nw)
 
-    # --- stream engine for the COO tiles (decided above)
+    # --- stream engine: the COO tiles (decided above) after the deep
+    # f64 tiles' entries
     stream = stream2 = None
+    s_rows, s_cols, s_vals = [deep_rows], [deep_cols], [deep_vals]
     if use_stream:
+        s_rows.append(g_row)
+        s_cols.append(g_col)
+        s_vals.append(bk.val.astype(np.float64))
+    if use_stream or deep_vals.size:
         stream, stream2 = build_stream_classes(
-            g_row, g_col, bk.val.astype(np.float64), tm.m,
-            span_rows=span_rows, dual=dual)
+            np.concatenate(s_rows), np.concatenate(s_cols),
+            np.concatenate(s_vals), tm.m, span_rows=span_rows, dual=dual,
+            compute_dtype=cdt)
 
     # leftover residual: the HYB overflow entries
     hb = tm.hyb
@@ -866,7 +972,7 @@ def build_lane_plan(tm: TileMatrix) -> LanePlan:
     g_val = hb.coo_val.astype(np.float64)
     order = np.lexsort((g_col, g_row))
     residual = ResidualEngine(
-        val=g_val[order].astype(np.float32),
+        val=g_val[order].astype(cdt),
         row=g_row[order].astype(np.int32),
         col=g_col[order].astype(np.int32))
 

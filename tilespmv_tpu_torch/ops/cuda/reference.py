@@ -2,12 +2,15 @@
 they assemble.
 
 Each `*_reference(cls, x, y)` adds its class's contribution into the
-f32 output `y` in place and returns it. `x` is the padded x (see
-`pad_x`); the class's plan arrays are tensors on x's device. For SpMV
+output `y` in place and returns it. `x` is the padded x (see
+`pad_x`); the class's plan arrays are tensors on x's device. The
+precision is the class's `val` dtype, that of x and y: float32 for an
+f32 plan, float64 for an f64 one (band, dense and stream classes; the
+plain versions of the f64 kernels). For SpMV
 x is flat (rows,) and y (ylen,); for SpMM over k right-hand sides x is
 (rows, k) and y (ylen, k), row-major, and every index below reads
 x[i] as x[i, r] and y[i] as y[i, r] for each RHS r. They use the same
-index arithmetic as the CUDA kernels (ops/cuda/csrc) and exact f32
+index arithmetic as the CUDA kernels (ops/cuda/csrc) and exact
 elementwise products, `cumsum` and `index_add_`, so each kernel is held
 to its plain version, and the plain versions to tilespmv_tpu's Pallas
 kernels in interpret mode (tests/test_torch_*).
@@ -76,7 +79,7 @@ def band_reference(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     T = ROW_WINDOW
     pb = bd.pb.view(nch, bd.k_panels).long()
     bloc = bd.bloc.view(nch, T).long()
-    acc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=torch.float32,
+    acc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=bd.val.dtype,
                       device=y.device)
     for cb in range(C):
         xq = _x_blocks(pb, bloc + cb, x)                 # (nch, 16j, T)
@@ -183,11 +186,11 @@ def to_torch(plan: LanePlan, device=None) -> LanePlan:
 
 
 def pad_x(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """f32 x, (n,) or (n, k), zero-padded along its rows to cover every
-    class's x reads: the panel classes' x_padded_len and the stream
-    classes' x_padded_len128."""
+    """x, (n,) or (n, k), in the plan's dtype, zero-padded along its rows
+    to cover every class's x reads: the panel classes' x_padded_len and
+    the stream classes' x_padded_len128."""
     xp = torch.zeros((max(plan.x_padded_len, plan.x_padded_len128),)
-                     + x.shape[1:], dtype=torch.float32, device=x.device)
+                     + x.shape[1:], dtype=plan.dtype, device=x.device)
     xp[: plan.n] = x
     return xp
 
@@ -197,7 +200,7 @@ def _checked_x(plan: LanePlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
         want = "(n,)" if ndim == 1 else "(n, k)"
         raise ValueError(f"x has shape {tuple(x.shape)}, expected {want} "
                          f"with n = {plan.n}")
-    return x.to(torch.float32)
+    return x.to(plan.dtype)
 
 
 def _zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -206,7 +209,7 @@ def _zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     ylen = plan.y_padded_len
     if plan.stream is not None:
         ylen = max(ylen, plan.n_stream_windows * RW_ROWS)
-    return torch.zeros((ylen,) + x.shape[1:], dtype=torch.float32,
+    return torch.zeros((ylen,) + x.shape[1:], dtype=plan.dtype,
                        device=x.device)
 
 
@@ -259,7 +262,7 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
             stream2(st, xp, y, r)
     if k % 2 and streams:
         xc = xp[:, k - 1].contiguous()
-        yc = torch.zeros(y.shape[0], dtype=torch.float32, device=y.device)
+        yc = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
         for st in streams:
             stream(st, xc, yc)
         y[:, k - 1] += yc

@@ -1,8 +1,9 @@
 """Entry-level stream engine plan for very sparse tiles (the COO class).
 
-NumPy port of tilespmv_tpu/ops/pallas/stream_plan.py, f32 path only,
-held bit-equal to it by tests/test_torch_plan.py. The layout is the
-reference package's; this module only builds it, as NumPy arrays.
+NumPy port of tilespmv_tpu/ops/pallas/stream_plan.py, held bit-equal
+to it by tests/test_torch_plan.py (f32) and tests/test_torch_f64_plan.py
+(f64). The layout is the reference package's; this module only builds
+it, as NumPy arrays.
 
 * a **slab** is an (8, 128) block of nonzero entries belonging to one
   output window (1024 rows) and one aligned x *superspan* of
@@ -21,8 +22,15 @@ reference package's; this module only builds it, as NumPy arrays.
   slab's 8 sublane slots maps to an arbitrary 1024-value x block of
   the window, x row = xmap[slab*64 + chunk*8 + sublane].
 
-Deferred (tilespmv_tpu keeps them): df64 planes and segmented scans and
-the offs/roll scatter encodings.
+f64 plans (`compute_dtype=np.float64`) have the f32 layout with float64
+values: each value is the reference's double-f32 pair summed in f64,
+hi + lo with hi = f32(v) and lo = f32(v - hi) (`f64_plan_value`), so
+they stay bit-checkable against the reference's `val` + `val_lo`. The
+reference's segmented-scan planes (`segmask`) feed only its compiled
+double-f32 scan and are not built; the round planes are the same in
+both dtypes.
+
+Deferred (tilespmv_tpu keeps them): the offs/roll scatter encodings.
 """
 from __future__ import annotations
 
@@ -40,6 +48,15 @@ XBLOCK_ROWS = 8    # x2d128 rows per sublane's x window (1024 values)
 SPAN_ROWS = 64     # default x2d128 rows per slab superspan (8 windows)
 SPAN_CHOICES = (64, 128, 256, 512)
 MAX_SPAN_ROWS = SPAN_CHOICES[-1]  # x padding slack past the end
+
+
+def f64_plan_value(v: np.ndarray) -> np.ndarray:
+    """The value an f64 plan holds for f64 `v`: the reference's exact
+    double-f32 pair (hi = f32(v), lo = f32(v - hi)) summed in float64,
+    which represents hi + lo exactly (48 significant bits)."""
+    hi = v.astype(np.float32)
+    lo = (v - hi.astype(np.float64)).astype(np.float32)
+    return hi.astype(np.float64) + lo.astype(np.float64)
 
 
 # int8 plane rows per slab in the RAW (builder) layout: R rounds x
@@ -72,7 +89,7 @@ class StreamChunks:
     `s_batch` per step; every step's slabs share one output window.
     `cw`, `cfirst` and `sactive` are per step; `sbase`/`sbase2` per
     slab."""
-    val: Any      # (nslabs, 8, 128) f32
+    val: Any      # (nslabs, 8, 128) f32, or f64 (f64_plan_value)
     vidx: Any     # (nslabs, 8, 128) int16: row-of-128<<7 | lane
     planes: Any   # (nsteps, step_plane_rows(R, S), 128) int8
     sbase: Any    # (nslabs,) int32: x2d128 row base of the superspan
@@ -429,13 +446,17 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
                         span_rows: Optional[int] = None,
                         stack: bool = True,
                         dual: Optional[bool] = None,
-                        fp: Optional[bool] = None):
-    """Compile a global COO entry list into f32 stream slabs (None for
-    no entries; no entry ever spills: the modular coloring cannot
-    conflict). Pass both `span_rows` and `dual`, or neither: then
+                        fp: Optional[bool] = None,
+                        compute_dtype=np.float32):
+    """Compile a global COO entry list into stream slabs of
+    `compute_dtype` values (float32, or float64 as f64_plan_value) —
+    None for no entries; no entry ever spills: the modular coloring
+    cannot conflict. Pass both `span_rows` and `dual`, or neither: then
     pick_geometry_fp chooses them and the free-placement layout (unless
     `fp` is given). `stack=False` keeps the round planes in the raw
     per-slab layout."""
+    cdt = np.dtype(compute_dtype)
+    f64 = cdt == np.dtype(np.float64)
     n_windows = max(1, -(-m // RW_ROWS))
     nz = g_row.shape[0]
     if nz == 0:
@@ -446,21 +467,22 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
             fp = fp_pick
     dual = bool(dual)
     if fp:
-        return _build_fp(g_row, g_col, val, m, stack)
+        return _build_fp(g_row, g_col, val, m, stack, cdt)
     sh = 7 + int(span_rows).bit_length() - 1     # log2(span_rows * 128)
     vmask = 16 * span_rows - 1                   # sub-window col mask
 
     if dual:
-        return _build_dual(g_row, g_col, val, m, span_rows, stack)
+        return _build_dual(g_row, g_col, val, m, span_rows, stack, cdt)
 
     from ...core import native
-    raw = native.stream_plan(g_row, g_col, val, m, span_rows=span_rows)
+    raw = native.stream_plan(g_row, g_col, val, m, span_rows=span_rows,
+                             want_lo=f64)
     if raw is not None:
         win_full = np.repeat(raw["cw"], raw["s_batch"])
         return _finish_stream(raw["val"], raw["vidx"], raw["planes"],
                               raw["sbase"], win_full, raw["s_batch"],
                               raw["rounds"], span_rows=span_rows,
-                              stack=stack)
+                              stack=stack, val_lo_arr=raw.get("val_lo"))
 
     win = (g_row >> 10).astype(np.int64)
     span = (g_col >> sh).astype(np.int64)    # aligned superspan
@@ -507,7 +529,7 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
     sbase = np.zeros(nslabs, np.int32)
     sbase[old2new] = raw_base.astype(np.int32)
 
-    val_arr = np.zeros((nslabs, SUBS, LANES), np.float32)
+    val_arr = np.zeros((nslabs, SUBS, LANES), cdt)
     vidx_arr = np.zeros((nslabs, SUBS, LANES), np.int16)
     val_arr[slab_of, sub_of, lane_of] = v
     vidx_arr[slab_of, sub_of, lane_of] = (c & vmask).astype(np.int16)
@@ -519,7 +541,8 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
                           stack=stack)
 
 
-def _build_fp(g_row, g_col, val, m, stack) -> Optional[StreamChunks]:
+def _build_fp(g_row, g_col, val, m, stack,
+              cdt=np.dtype(np.float32)) -> Optional[StreamChunks]:
     """Free-placement slabs: each of a slab's 8 sublane slots maps to
     an ARBITRARY (same-window) 1024-value x block via the plan-time
     xmap rows — no span alignment, so hypersparse populations pack at
@@ -567,9 +590,9 @@ def _build_fp(g_row, g_col, val, m, stack) -> Optional[StreamChunks]:
     slab_of = slab_of_slot[slot_of]
     sub_of = sub_of_slot[slot_of]
 
-    val_arr = np.zeros((nslabs, SUBS, LANES), np.float32)
+    val_arr = np.zeros((nslabs, SUBS, LANES), cdt)
     vidx_arr = np.zeros((nslabs, SUBS, LANES), np.int16)
-    val_arr[slab_of, sub_of, lane_of] = v.astype(np.float32)
+    val_arr[slab_of, sub_of, lane_of] = v.astype(cdt)
     vidx_arr[slab_of, sub_of, lane_of] = (c & (RW_ROWS - 1)).astype(
         np.int16)
 
@@ -586,8 +609,8 @@ def _build_fp(g_row, g_col, val, m, stack) -> Optional[StreamChunks]:
                           stack=stack, xmap_arr=xmap)
 
 
-def _build_dual(g_row, g_col, val, m, span_rows,
-                stack) -> Optional[StreamChunks]:
+def _build_dual(g_row, g_col, val, m, span_rows, stack,
+                cdt=np.dtype(np.float32)) -> Optional[StreamChunks]:
     """Dual-span slab packing: walk each window's (superspan) groups in
     span order; an open slab carries the previous group's leftover
     (span A) and takes min(count, free) of the next group per sublane
@@ -596,16 +619,17 @@ def _build_dual(g_row, g_col, val, m, span_rows,
     are merged row-sorted per (slab, sublane), so runs, the coloring,
     and every downstream stage are the mono machinery unchanged."""
     n_windows = max(1, -(-m // RW_ROWS))
+    f64 = cdt == np.dtype(np.float64)
     from ...core import native
     raw = native.stream_plan(g_row, g_col, val, m, span_rows=span_rows,
-                             dual=True)
+                             dual=True, want_lo=f64)
     if raw is not None:
         win_full = np.repeat(raw["cw"], raw["s_batch"])
         return _finish_stream(raw["val"], raw["vidx"], raw["planes"],
                               raw["sbase"], win_full, raw["s_batch"],
                               raw["rounds"], span_rows=span_rows,
                               stack=stack, sbase2_arr=raw["sbase2"],
-                              dual=True)
+                              dual=True, val_lo_arr=raw.get("val_lo"))
     nz = g_row.shape[0]
     sh = 7 + int(span_rows).bit_length() - 1
     vmask = 16 * span_rows - 1
@@ -704,9 +728,9 @@ def _build_dual(g_row, g_col, val, m, span_rows,
     sbase[old2new] = sbaseA_raw.astype(np.int32)
     sbase2[old2new] = sbaseB_raw.astype(np.int32)
 
-    val_arr = np.zeros((nslabs, SUBS, LANES), np.float32)
+    val_arr = np.zeros((nslabs, SUBS, LANES), cdt)
     vidx_arr = np.zeros((nslabs, SUBS, LANES), np.int16)
-    val_arr[slab_of, sub_o2, lane_of] = v2.astype(np.float32)
+    val_arr[slab_of, sub_o2, lane_of] = v2.astype(cdt)
     vidx_arr[slab_of, sub_o2, lane_of] = (
         (c2 & vmask) | (isB2.astype(np.int64) << 13)).astype(np.int16)
     planes, rounds = _runs_planes(slab_of, sub_o2, lane_of, r2, nslabs)
@@ -719,9 +743,11 @@ def _build_dual(g_row, g_col, val, m, span_rows,
 def build_stream_classes(g_row: np.ndarray, g_col: np.ndarray,
                          val: np.ndarray, m: int,
                          span_rows: Optional[int] = None,
-                         dual: Optional[bool] = None):
-    """Build the f32 stream plan AND its two-rate (base, heavy) split in
-    one pass. Returns (base, heavy | None); (None, None) for no entries.
+                         dual: Optional[bool] = None,
+                         compute_dtype=np.float32):
+    """Build the stream plan (values of `compute_dtype`, as
+    build_stream_chunks) AND its two-rate (base, heavy) split in one
+    pass. Returns (base, heavy | None); (None, None) for no entries.
 
     Fast path: the native builder runs once (slabs-per-step 1), Python
     decides the split on per-slab metadata only, and C++ exports each
@@ -731,6 +757,8 @@ def build_stream_classes(g_row: np.ndarray, g_col: np.ndarray,
     `dual`, or neither (pick_geometry_fp then chooses)."""
     if g_row.shape[0] == 0:
         return None, None
+    cdt = np.dtype(compute_dtype)
+    f64 = cdt == np.dtype(np.float64)
     fp = False
     if span_rows is None:
         span_rows, dual, fp = pick_geometry_fp(g_row, g_col, m)
@@ -739,32 +767,38 @@ def build_stream_classes(g_row: np.ndarray, g_col: np.ndarray,
         # free-placement class: NumPy builder + host split (the native
         # export emits aligned-span plans only)
         return split_stream_chunks(
-            _build_fp(g_row, g_col, val, m, stack=False))
+            _build_fp(g_row, g_col, val, m, stack=False, cdt=cdt))
     from ...core import native
     out = native.stream_plan_classes(
         g_row, g_col, val, m, span_rows=span_rows, dual=dual,
-        split_fn=pick_stream_split)
+        split_fn=pick_stream_split, want_lo=f64)
     if out is not None:
         classes = [StreamChunks(
-            val=cd["val"], vidx=cd["vidx"], planes=cd["planes"],
+            val=(cd["val"].astype(np.float64) + cd["val_lo"] if f64
+                 else cd["val"]),
+            vidx=cd["vidx"], planes=cd["planes"],
             sbase=cd["sbase"], cw=cd["cw"], cfirst=cd["cfirst"],
             sactive=cd["sactive"], sbase2=cd.get("sbase2"),
             s_batch=cd["s_batch"], rounds_=cd["rounds"],
             span_rows=span_rows, dual=dual) for cd in out]
         return classes[0], classes[1] if len(classes) > 1 else None
     return split_stream_chunks(build_stream_chunks(
-        g_row, g_col, val, m, span_rows=span_rows, dual=dual, stack=False))
+        g_row, g_col, val, m, span_rows=span_rows, dual=dual, stack=False,
+        compute_dtype=cdt))
 
 
 def _finish_stream(val_arr, vidx_arr, planes, sbase, win_arr, s_batch,
                    rounds, span_rows: int = SPAN_ROWS, stack: bool = True,
                    sbase2_arr=None, dual: bool = False,
-                   xmap_arr=None) -> StreamChunks:
+                   xmap_arr=None, val_lo_arr=None) -> StreamChunks:
     """Order slabs by load within each window (so empty padding slabs
     cluster into trailing steps the kernel can skip), stack the round
-    planes per step, and build the per-step control scalars. `stack`
-    False keeps the planes in the RAW per-slab layout (an intermediate
-    for split_stream_chunks)."""
+    planes per step, and build the per-step control scalars. f32 values
+    stay f32; f64 values become f64_plan_value after the load count (as
+    the reference splits them after it), and a native pair (f32 hi in
+    `val_arr`, `val_lo_arr`) becomes hi + lo. `stack` False keeps the
+    planes in the RAW per-slab layout (an intermediate for
+    split_stream_chunks)."""
     nslabs = val_arr.shape[0]
     load = np.count_nonzero(val_arr.reshape(nslabs, -1), axis=1)
     order = np.lexsort((-load, win_arr))
@@ -782,6 +816,11 @@ def _finish_stream(val_arr, vidx_arr, planes, sbase, win_arr, s_batch,
     if sbase2_arr is not None:
         sbase2_arr = sbase2_arr[order]
     load = load[order]
+    if val_lo_arr is not None:
+        val_arr = (val_arr.astype(np.float64)
+                   + val_lo_arr[order].astype(np.float64))
+    elif val_arr.dtype == np.float64:
+        val_arr = f64_plan_value(val_arr)
 
     win_step = win_arr[::s_batch]
     cw = win_step.astype(np.int32)
@@ -789,7 +828,7 @@ def _finish_stream(val_arr, vidx_arr, planes, sbase, win_arr, s_batch,
     cfirst[1:] = (win_step[1:] != win_step[:-1]).astype(np.int32)
     sactive = (load.reshape(-1, s_batch).sum(axis=1) > 0).astype(np.int32)
     return StreamChunks(
-        val=val_arr.astype(np.float32), vidx=vidx_arr, planes=planes,
+        val=val_arr, vidx=vidx_arr, planes=planes,
         sbase=sbase.astype(np.int32), cw=cw, cfirst=cfirst,
         sactive=sactive,
         sbase2=(sbase2_arr.astype(np.int32)

@@ -13,6 +13,6 @@ from typing import Any
 @dataclasses.dataclass(frozen=True)
 class ResidualEngine:
     """Sorted-COO residual (global indices), segment-sum by row."""
-    val: Any        # (nnz,) f32
+    val: Any        # (nnz,) f32, or f64 in an f64 plan
     row: Any        # (nnz,) int32 sorted ascending
     col: Any        # (nnz,) int32

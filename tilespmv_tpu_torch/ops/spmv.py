@@ -1,8 +1,10 @@
 """Public SpMV / SpMM operator.
 
 `TileSpMV` converts a matrix (CSR or an already-converted TileMatrix)
-into the lane-major execution plan and computes y = A @ x (`forward`)
-and Y = A @ X for X (n, k) (`matmat`; `op @ x` takes either). It is an
+into the lane-major execution plan of its `dtype` (float32, or float64
+as the reference's f64 plan with native-FP64 values) and computes
+y = A @ x (`forward`) and Y = A @ X for X (n, k) (`matmat`; `op @ x`
+takes either). It is an
 `nn.Module` whose plan arrays are registered buffers, so `.to(device)`
 moves the plan. On a CUDA device it runs the hand-written class kernels
 (ops/cuda/kernels.py::spmv_cuda / spmm_cuda); on the CPU it runs their
@@ -26,22 +28,33 @@ from .cuda.reference import spmm_reference, spmv_reference
 
 
 class TileSpMV(nn.Module):
-    """Tiled f32 SpMV / SpMM operator.
+    """Tiled f32 or f64 SpMV / SpMM operator.
 
     >>> op = TileSpMV(csr, device="cuda")   # convert + plan + upload
     >>> y = op(x)                           # y = A @ x on op's device
     >>> Y = op.matmat(X)                    # Y = A @ X, X (n, k)
     >>> y, Y = op @ x, op @ X
+    >>> op64 = TileSpMV(csr, device="cuda", dtype=torch.float64)
     """
 
+    DTYPES = (torch.float32, torch.float64)
+
     def __init__(self, a: Union[CSRMatrix, TileMatrix],
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 dtype: torch.dtype = torch.float32):
         """`a`: a CSRMatrix (converted with the default TileConfig) or
-        a TileMatrix from tile_create with any config of tile size 16."""
+        a TileMatrix from tile_create with any config of tile size 16.
+        `dtype`: the compute dtype, torch.float32 or torch.float64 (the
+        reference's `compute_dtype`); x is cast to it and y has it."""
         super().__init__()
+        if dtype not in self.DTYPES:
+            raise ValueError(f"dtype {dtype}: TileSpMV computes in "
+                             f"{' or '.join(map(str, self.DTYPES))}")
+        self.dtype = dtype
         if not isinstance(a, TileMatrix):
             a = tile_create(a)
-        plan = build_lane_plan(a)
+        plan = build_lane_plan(a, compute_dtype=np.dtype(
+            str(dtype).replace("torch.", "")))
         self.summary = plan.summary()
         self.nnz = plan.nnz
         self._bytes_accessed = plan.bytes_accessed()
@@ -84,7 +97,7 @@ class TileSpMV(nn.Module):
         raise ValueError(f"TileSpMV runs on CUDA or CPU, not {x.device}")
 
     def forward(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         if x.shape != (self._skeleton.n,):
             raise ValueError(f"x has shape {tuple(x.shape)}, "
                              f"expected ({self._skeleton.n},)")
@@ -92,13 +105,14 @@ class TileSpMV(nn.Module):
 
     def matmat(self, x) -> torch.Tensor:
         """Y = A @ X for X (n, k): the fused SpMM kernels for k in SPMM_K
-        (2..16), one SpMV per column otherwise, as the reference
-        dispatches (tilespmv_tpu/ops/spmv.py:69-89)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        (2..16) on an f32 operator, one SpMV per column otherwise and on
+        an f64 one, as the reference dispatches
+        (tilespmv_tpu/ops/spmv.py:69-89)."""
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         if x.dim() != 2 or x.shape[0] != self._skeleton.n:
             raise ValueError(f"X has shape {tuple(x.shape)}, expected "
                              f"({self._skeleton.n}, k)")
-        if x.shape[1] not in SPMM_K:
+        if x.shape[1] not in SPMM_K or self.dtype != torch.float32:
             return torch.stack([self.forward(x[:, r])
                                 for r in range(x.shape[1])], dim=1)
         return self._run(x, spmm_cuda, spmm_reference)
