@@ -47,7 +47,23 @@ Phases, each fatal on failure:
    stream_f64 on powerlaw_large and mixed_large's split pair) within
    1e-12 * max(1, max|plain|), with median times; end to end per matrix
    f64 ms and GFLOPS for the kernel and plain paths and the ratio to
-   phase 5's f32 ms.
+   phase 5's f32 ms;
+9. measurement — with the launch counters reset just before: the two
+   microbenchmarks (tilespmv_tpu_torch/scripts/microbench_{gather,
+   scatter}.py's `timeit`: every R and every arm, ns per step over 4 and
+   64 whole waves) and `utils.profiling.profile_engines` on the trio in
+   f32 and f64; microbench_gather, microbench_scatter and every SpMV
+   class kernel must have launched, and every class of each plan must
+   be profiled with us > 0; each class's bytes printed against the
+   card's L2 size, the sum of the class times beside phase 5's and
+   phase 8's end-to-end ms; `utils.profiling.trace_context` around
+   TRACE_CALLS op(x) per matrix and dtype must trace device time, whose
+   share of the end-to-end ms (the device's busy share) is printed with
+   the largest device items; then each microbenchmark kernel against
+   its plain version on the card for every R and arm (one launch of one
+   wave of steps, the phase-4 bound), with the kernel's time per step
+   (the scripts' number), the plain version's time for one step, and
+   the time of a launch of one step.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results, then the last line
@@ -58,7 +74,6 @@ import dataclasses
 import json
 import pathlib
 import statistics
-import subprocess
 import sys
 import time
 
@@ -95,8 +110,17 @@ F64_KERNELS = {
     "stream_f64": (_SRC + "stream.cu", _TPU + "1926",
                    ("powerlaw_large", "mixed_large")),
 }
+# the microbenchmark kernels: (source, TPU kernel it replaces)
+MB_KERNELS = {
+    "microbench_gather": (_SRC + "microbench_gather.cu",
+                          "scripts/microbench_gather.py:45"),
+    "microbench_scatter": (_SRC + "microbench_scatter.cu",
+                           "scripts/microbench_scatter.py:98"),
+}
 # right-hand sides of the SpMM phase's plan-level runs and comparisons
 K_MM = 8
+# op(x) calls per matrix and dtype in phase 9's trace
+TRACE_CALLS = 20
 MTX = "tests/fixtures/bcsstk_style_sym.mtx"
 
 
@@ -158,14 +182,6 @@ def cuda_ms(fn, reps: int = 5, iters: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def class_lists(plan) -> dict:
@@ -347,8 +363,9 @@ def gate64(name: str, csr, y: np.ndarray, x: np.ndarray) -> float:
     return err
 
 
-def f64_phase(dev, card, csrs, f32_ms) -> list:
-    """Phase 8 (see the module doc); returns the f64 kernels' results."""
+def f64_phase(dev, card, csrs, f32_ms) -> tuple:
+    """Phase 8 (see the module doc); returns the f64 kernels' results,
+    the f64 operators and their end-to-end ms."""
     import torch
     from tilespmv_tpu_torch import TileSpMV, load_mtx
     from tilespmv_tpu_torch.ops.cuda import kernels, reference
@@ -413,10 +430,11 @@ def f64_phase(dev, card, csrs, f32_ms) -> list:
                               csrs, launches, tol=KERNEL_TOL_F64)
 
     # end to end
+    f64_ms = {}
     for n in FLAGSHIP:
         op, x = ops[n], xd[n]
         plan = op.device_plan()
-        ms = cuda_ms(lambda: op(x))
+        ms = f64_ms[n] = cuda_ms(lambda: op(x))
         plain_ms = cuda_ms(lambda: reference.spmv_reference(plan, x),
                            iters=3)
         flops = 2.0 * op.nnz
@@ -424,6 +442,159 @@ def f64_phase(dev, card, csrs, f32_ms) -> list:
             f"GFLOPS, plain {plain_ms:.4f} ms {flops / plain_ms / 1e6:.2f} "
             f"GFLOPS, f64 / f32 ms {ms / f32_ms[n]:.2f}, plan "
             f"{op.summary['plan_mbytes']} MB [{card}]")
+    return results, ops, f64_ms
+
+
+def profile_keys(plan) -> list:
+    """The profile_engines keys the plan's classes must give, in order."""
+    return (["dense"] * (plan.dense is not None)
+            + ["band"] * (plan.band is not None)
+            + [f"sparse_w{s.width}" for s in plan.sparses]
+            + [k for k, st in (("stream", plan.stream),
+                               ("stream2", plan.stream2)) if st is not None]
+            + ["residual"] * bool(plan.residual.val.shape[0]))
+
+
+def traced_device_us(profiling, op, calls: int) -> tuple:
+    """`profiling.trace_context` around `calls` op(x) with bench.py's x on
+    the card, the trace written into a temporary directory under the
+    checkout's git-ignored build/: the device time traced in us (kernels,
+    fills, copies) and the three largest device items, (name, us)."""
+    import tempfile
+    import torch
+    x = torch.as_tensor(bench_x(op.shape[1]), dtype=op.dtype,
+                        device=op.device)
+    op(x)
+    torch.cuda.synchronize()
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        with profiling.trace_context(d) as prof:
+            for _ in range(calls):
+                op(x)
+        if not list(pathlib.Path(d).glob("*.json")):
+            raise AssertionError("trace_context wrote no trace")
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # "void (anonymous namespace)::k<float>(int, ...)" -> "k"
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            name = name.split("::")[-1].strip()
+            per[name] = per.get(name, 0.0) + e.self_device_time_total
+    return sum(per.values()), sorted(per.items(), key=lambda kv: -kv[1])[:3]
+
+
+def measurement_phase(dev, card, ops, e2e_ms) -> list:
+    """Phase 9 (see the module doc). `ops` and `e2e_ms` are keyed by
+    (matrix, "f32" or "f64"); returns the microbenchmark kernels'
+    results."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    from tilespmv_tpu_torch.scripts import (microbench_gather,
+                                            microbench_scatter)
+    from tilespmv_tpu_torch.utils import profiling
+    g_in = microbench_gather.inputs(device=dev)
+    s_in = {arm: microbench_scatter.inputs(arm, device=dev)
+            for arm in reference.MB_SCATTER_ARMS}
+
+    # the measurement path, counters reset just before
+    log(f"microbenchmarks [{card}]")
+    kernels.reset_launch_counts()
+    timings = {"microbench_gather": {
+        r: microbench_gather.timeit(r, *g_in)
+        for r in reference.MB_GATHER_R}}
+    timings["microbench_scatter"] = {
+        arm: microbench_scatter.timeit(arm, *s_in[arm])
+        for arm in reference.MB_SCATTER_ARMS}
+    profiles = {key: profiling.profile_engines(op)
+                for key, op in ops.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"measurement path launches: {launches}")
+    for name in (*MB_KERNELS, *KERNELS, *F64_KERNELS):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "measurement path")
+
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    for (n, dt), prof in profiles.items():
+        want = profile_keys(ops[n, dt].device_plan())
+        if list(prof) != want or not all(v["us"] > 0
+                                         for v in prof.values()):
+            raise AssertionError(f"profile {n} {dt}: classes "
+                                 f"{list(prof)}, expected {want}: {prof}")
+        for k, v in prof.items():
+            counts = {f: c for f, c in v.items()
+                      if f not in ("us", "bytes", "gbps")}
+            log(f"profile {n} {dt} {k}: {v['us']:.2f} us, "
+                f"{v['bytes'] / 1e6:.2f} MB "
+                f"({'within' if v['bytes'] <= l2 else 'over'} the "
+                f"{l2 / 1e6:.1f} MB L2), {v['gbps']:.1f} GB/s, "
+                f"{json.dumps(counts)} [{card}]")
+        total = sum(v["us"] for v in prof.values()) / 1e3
+        log(f"profile {n} {dt}: sum of classes {total:.4f} ms, end to end "
+            f"{e2e_ms[n, dt]:.4f} ms (phase {5 if dt == 'f32' else 8}) "
+            f"[{card}]")
+
+    # device busy share of the main path under trace_context
+    for (n, dt), op in ops.items():
+        dev_us, top = traced_device_us(profiling, op, TRACE_CALLS)
+        if not dev_us > 0:
+            raise AssertionError(f"trace {n} {dt}: no device time traced")
+        ms = dev_us / TRACE_CALLS / 1e3
+        log(f"trace {n} {dt}: device {ms:.4f} ms per call over "
+            f"{TRACE_CALLS} calls, busy {ms / e2e_ms[n, dt]:.2f} of the "
+            f"end to end ms; " + ", ".join(
+                f"{k} {v / TRACE_CALLS / 1e3:.4f}" for k, v in top)
+            + f" [{card}]")
+
+    # each microbenchmark kernel against its plain version
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    runs = {
+        "microbench_gather": {
+            r: (lambda n, r=r: kernels.microbench_gather(*g_in, r, n),
+                lambda r=r: reference.microbench_gather_reference(*g_in, r))
+            for r in reference.MB_GATHER_R},
+        "microbench_scatter": {
+            arm: (lambda n, a=arm: kernels.microbench_scatter(a, *s_in[a],
+                                                              n),
+                  lambda a=arm: reference.microbench_scatter_reference(
+                      a, *s_in[a]))
+            for arm in reference.MB_SCATTER_ARMS},
+    }
+    results = []
+    for name, (src, replaces) in MB_KERNELS.items():
+        errs, ms, plain_ms, one_ms = {}, {}, {}, {}
+        for v, (run, plain) in runs[name].items():
+            wave = sms * kernels.microbench_blocks_per_sm(name, v)
+            before = kernels.launch_counts()[name]
+            out = run(wave)
+            want = plain()
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[name] != before + 1:
+                raise AssertionError(f"{name} {v}: no launch counted")
+            err = errs[v] = float((out - want).abs().max())
+            bound = KERNEL_TOL * max(1.0, float(want.abs().max()))
+            if not err <= bound:
+                raise AssertionError(f"{name} {v}: max |kernel - plain| "
+                                     f"{err:.3e} > {bound:.3e}")
+            ms[v] = timings[name][v] / 1e6
+            plain_ms[v] = cuda_ms(plain, iters=20)
+            one_ms[v] = cuda_ms(lambda: run(1), iters=20)
+            log(f"kernel {name} {v}: max abs err {err:.3e} (bound "
+                f"{bound:.3e}, {wave} steps); per step: kernel "
+                f"{ms[v] * 1e6:.3f} ns (whole chip, above) vs plain "
+                f"{plain_ms[v] * 1e6:.1f} ns; a launch of one step "
+                f"{one_ms[v]:.4f} ms [{card}]")
+        first = next(iter(ms))
+        results.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=max(errs.values()),
+            ms=ms[first], plain_ms=plain_ms[first],
+            ms_by_variant={str(v): t for v, t in ms.items()},
+            plain_ms_by_variant={str(v): t for v, t in plain_ms.items()},
+            one_step_launch_ms={str(v): t for v, t in one_ms.items()}))
     return results
 
 
@@ -443,6 +614,7 @@ def main() -> int:
     from tilespmv_tpu_torch.core import native
     from tilespmv_tpu_torch.io import generate
     from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
+    from tilespmv_tpu_torch.utils.profiling import card_line
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -524,7 +696,13 @@ def main() -> int:
     log(f"mtx {MTX}: {csr.m}x{csr.n} nnz {csr.nnz} ok")
 
     results += spmm_phase(dev, card, ops, csrs)
-    results += f64_phase(dev, card, csrs, f32_ms)
+    res64, ops64, f64_ms = f64_phase(dev, card, csrs, f32_ms)
+    results += res64
+    results += measurement_phase(
+        dev, card, {**{(n, "f32"): ops[n] for n in FLAGSHIP},
+                    **{(n, "f64"): ops64[n] for n in FLAGSHIP}},
+        {**{(n, "f32"): f32_ms[n] for n in FLAGSHIP},
+         **{(n, "f64"): f64_ms[n] for n in FLAGSHIP}})
 
     log(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

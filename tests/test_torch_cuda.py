@@ -1,5 +1,8 @@
-"""The CUDA class kernels (SpMV and SpMM) against their plain PyTorch
-versions on the card, and the operator against the float64 golden. Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
+"""The CUDA class kernels (SpMV and SpMM) and the microbenchmark
+kernels against their plain PyTorch versions on the card, the operator
+against the float64 golden, and `profile_engines` and `trace_context` on
+a CUDA operator.
+Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -15,6 +18,8 @@ import torch
 from tilespmv_tpu_torch import TileSpMV
 from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import kernels, reference
+from tilespmv_tpu_torch.scripts import microbench_gather, microbench_scatter
+from tilespmv_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -180,3 +185,67 @@ def test_f64_kernels_match_plain_versions(name, device):
     y = op(x)
     assert y.dtype == torch.float64
     assert np.max(np.abs(y.cpu().numpy() - gold) / (1 + mag)) <= 1e-12
+
+
+def _mb_check(name, run, plain) -> None:
+    """One launch of a microbenchmark kernel over a few waves of steps
+    against its plain version, within 1e-5 * max(1, max|plain|)."""
+    before = kernels.launch_counts()[name]
+    out = run()
+    assert kernels.launch_counts()[name] == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (8, 128) and out.dtype == torch.float32
+    err = float((out - plain).abs().max())
+    assert err <= 1e-5 * max(1.0, float(plain.abs().max())), err
+
+
+@pytest.mark.parametrize("r", reference.MB_GATHER_R)
+def test_microbench_gather_matches_plain_version(r, device):
+    src, idx = microbench_gather.inputs(seed=r, device=device)
+    plain = reference.microbench_gather_reference(src, idx, r)
+    _mb_check("microbench_gather",
+              lambda: kernels.microbench_gather(src, idx, r, nsteps=300),
+              plain)
+    assert kernels.microbench_blocks_per_sm("microbench_gather", r) >= 1
+
+
+@pytest.mark.parametrize("arm", reference.MB_SCATTER_ARMS)
+def test_microbench_scatter_matches_plain_version(arm, device):
+    csum, pe = microbench_scatter.inputs(arm, seed=1, device=device)
+    plain = reference.microbench_scatter_reference(arm, csum, pe)
+    _mb_check("microbench_scatter",
+              lambda: kernels.microbench_scatter(arm, csum, pe, nsteps=300),
+              plain)
+    assert kernels.microbench_blocks_per_sm("microbench_scatter", arm) >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_profile_engines_on_cuda(dtype, device):
+    op = TileSpMV(generate.get_matrix("mixed_medium"), device=device,
+                  dtype=dtype)
+    plan = op.device_plan()
+    want = (["dense"] * (plan.dense is not None)
+            + ["band"] * (plan.band is not None)
+            + [f"sparse_w{s.width}" for s in plan.sparses]
+            + [k for k, st in (("stream", plan.stream),
+                               ("stream2", plan.stream2)) if st is not None]
+            + ["residual"] * bool(plan.residual.val.shape[0]))
+    before = kernels.launch_counts()
+    prof = profiling.profile_engines(op)
+    after = kernels.launch_counts()
+    assert list(prof) == want
+    assert all(v["us"] > 0 and v["bytes"] > 0 for v in prof.values())
+    suffix = "_f64" if dtype == torch.float64 else ""
+    assert after["stream" + suffix] > before["stream" + suffix]
+
+
+def test_trace_context_traces_the_kernels(tmp_path, device):
+    op = TileSpMV(generate.get_matrix("mixed_medium"), device=device)
+    x = torch.from_numpy(_bench_x(op.shape[1])).to(device)
+    op(x)
+    with profiling.trace_context(tmp_path) as prof:
+        op(x)
+    assert len(list(tmp_path.glob("*.json"))) == 1
+    dev_us = [e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert dev_us and sum(dev_us) > 0

@@ -24,7 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: (name, argtypes); every entry returns cudaGetLastError()
+_PI = ctypes.POINTER(ctypes.c_int)
+# C entry points: (name, argtypes); every entry returns a cudaError_t (0:
+# success), a launch's being cudaGetLastError() right after it
 ENTRY_POINTS = {
     "tsp_band": [_P] * 6 + [_I] * 3 + [_P],
     "tsp_dense": [_P] * 6 + [_I] * 4 + [_P],
@@ -37,6 +39,10 @@ ENTRY_POINTS = {
     "tsp_dense_spmm": [_P] * 6 + [_I] * 5 + [_P],
     "tsp_sparse_spmm": [_P] * 6 + [_I] * 6 + [_P],
     "tsp_stream2": [_P] * 10 + [_I] * 6 + [_P],
+    "tsp_mb_gather": [_P] * 3 + [_I] * 2 + [_P],
+    "tsp_mb_gather_occupancy": [_I, _PI],
+    "tsp_mb_scatter": [_P] * 3 + [_I] * 2 + [_P],
+    "tsp_mb_scatter_occupancy": [_I, _PI],
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,11 @@ on the current stream (building the library on first use) or raises.
 `LAUNCHES` counts kernel launches per kernel (`band` the f32 band
 kernel, `band_f64` the f64 one, ...); it moves only where a kernel is
 launched.
+
+`microbench_gather` and `microbench_scatter` wrap the two
+microbenchmark kernels (the reference's scripts/microbench_*.py), whose
+inputs and plain versions are in reference.py; the scripts in
+tilespmv_tpu_torch/scripts time them.
 """
 from __future__ import annotations
 
@@ -26,9 +31,12 @@ import torch
 
 from . import build
 from .lane_plan import ROW_WINDOW, LanePlan, sparse_meta_rows
-from .reference import (assemble, assemble_mm, band_reference,
-                        band_spmm_reference, dense_reference,
-                        dense_spmm_reference, sparse_reference,
+from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
+                        MB_SCATTER_ARMS, MB_SLABS, assemble, assemble_mm,
+                        band_reference, band_spmm_reference,
+                        dense_reference, dense_spmm_reference,
+                        microbench_gather_reference,
+                        microbench_scatter_reference, sparse_reference,
                         sparse_spmm_reference, stream2_reference,
                         stream_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
@@ -38,7 +46,8 @@ from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 SPMM_K = range(2, 17)
 LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
             "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0,
-            "band_f64": 0, "dense_f64": 0, "stream_f64": 0}
+            "band_f64": 0, "dense_f64": 0, "stream_f64": 0,
+            "microbench_gather": 0, "microbench_scatter": 0}
 # value dtypes of the SpMV kernels: (LAUNCHES suffix, C entry suffix)
 _SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
@@ -327,3 +336,73 @@ def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
                         "per column)")
     return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
                        stream_spmm2, stream_spmv)
+
+
+def _mb_out(dev, nsteps: int) -> torch.Tensor:
+    if not 1 <= nsteps < 2 ** 31:
+        raise ValueError(f"nsteps = {nsteps}: a launch runs 1 <= nsteps "
+                         "< 2**31 steps")
+    return torch.empty((SUBS, LANES), dtype=torch.float32, device=dev)
+
+
+def microbench_gather(src: torch.Tensor, idx: torch.Tensor, r: int,
+                      nsteps: int = 1) -> torch.Tensor:
+    """The gather microbenchmark at group width r in MB_GATHER_R: src
+    (512, 128) float32, idx (512, 128) int8 in [0, 128); returns the
+    (8, 128) result of reference.microbench_gather_reference. On CUDA
+    one launch runs `nsteps` steps (blocks), each computing and storing
+    that same result."""
+    dev = src.device
+    _check("src", src, torch.float32, (MB_ROWS, LANES), dev)
+    _check("idx", idx, torch.int8, (MB_ROWS, LANES), dev)
+    if r not in MB_GATHER_R:
+        raise ValueError(f"microbench_gather: R = {r}, not in {MB_GATHER_R}")
+    out = _mb_out(dev, nsteps)
+    if not _use_kernel(out):
+        return microbench_gather_reference(src, idx, r)
+    err = build.load().tsp_mb_gather(_p(src), _p(idx), _p(out), r, nsteps,
+                                     _stream())
+    _launched("microbench_gather", err)
+    return out
+
+
+def microbench_scatter(arm: str, csum: torch.Tensor, pe: torch.Tensor,
+                       nsteps: int = 1) -> torch.Tensor:
+    """The scatter microbenchmark's `arm` (MB_SCATTER_ARMS): csum
+    (104, 128) float32, pe (MB_PE_ROWS, 128) int8 in [0, 8) for rounds
+    and [0, 128) otherwise; returns the (8, 128) result of
+    reference.microbench_scatter_reference. On CUDA one launch runs
+    `nsteps` steps (blocks), each computing and storing that result."""
+    dev = csum.device
+    _check("csum", csum, torch.float32, (MB_SLABS * SUBS, LANES), dev)
+    _check("pe", pe, torch.int8, (MB_PE_ROWS, LANES), dev)
+    if arm not in MB_SCATTER_ARMS:
+        raise ValueError(f"microbench_scatter: arm {arm!r}, not one of "
+                         f"{MB_SCATTER_ARMS}")
+    out = _mb_out(dev, nsteps)
+    if not _use_kernel(out):
+        return microbench_scatter_reference(arm, csum, pe)
+    err = build.load().tsp_mb_scatter(_p(csum), _p(pe), _p(out),
+                                      MB_SCATTER_ARMS.index(arm), nsteps,
+                                      _stream())
+    _launched("microbench_scatter", err)
+    return out
+
+
+def microbench_blocks_per_sm(name: str, variant) -> int:
+    """Resident blocks per SM of a microbenchmark kernel: `name`
+    "microbench_gather" with R, or "microbench_scatter" with an arm
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; needs the card)."""
+    n = ctypes.c_int(0)
+    lib = build.load()
+    if name == "microbench_gather":
+        err = lib.tsp_mb_gather_occupancy(variant, ctypes.byref(n))
+    elif name == "microbench_scatter":
+        err = lib.tsp_mb_scatter_occupancy(MB_SCATTER_ARMS.index(variant),
+                                           ctypes.byref(n))
+    else:
+        raise ValueError(f"no microbenchmark kernel {name!r}")
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"{name} {variant}: occupancy query failed "
+                           f"(CUDA error {err}, {n.value} blocks per SM)")
+    return n.value

@@ -203,7 +203,7 @@ def _checked_x(plan: LanePlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
     return x.to(plan.dtype)
 
 
-def _zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
+def zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """One zero y, (ylen,) or (ylen, k), spanning the panel classes' and
     the stream classes' windows: every class adds into it."""
     ylen = plan.y_padded_len
@@ -222,7 +222,8 @@ def _panel_classes(plan: LanePlan, xp, y, band, dense, sparse) -> None:
         sparse(s, xp, y)
 
 
-def _residual(plan: LanePlan, x, y) -> None:
+def residual_add(plan: LanePlan, x, y) -> None:
+    """Add the residual entries' products into y (x unpadded)."""
     r = plan.residual
     if r.val.shape[0]:
         y.index_add_(0, r.row.long(), _rhs(r.val, x) * x[r.col.long()])
@@ -234,12 +235,12 @@ def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
     class order (dense, band, W-classes, stream, stream2, residual)."""
     x = _checked_x(plan, x, 1)
     xp = pad_x(plan, x)
-    y = _zero_y(plan, x)
+    y = zero_y(plan, x)
     _panel_classes(plan, xp, y, band, dense, sparse)
     for st in (plan.stream, plan.stream2):
         if st is not None:
             stream(st, xp, y)
-    _residual(plan, x, y)
+    residual_add(plan, x, y)
     return y[: plan.m]
 
 
@@ -254,7 +255,7 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
     x = _checked_x(plan, x, 2)
     k = x.shape[1]
     xp = pad_x(plan, x)
-    y = _zero_y(plan, x)
+    y = zero_y(plan, x)
     _panel_classes(plan, xp, y, band, dense, sparse)
     streams = [st for st in (plan.stream, plan.stream2) if st is not None]
     for r in range(0, k - 1, 2):
@@ -266,7 +267,7 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
         for st in streams:
             stream(st, xc, yc)
         y[:, k - 1] += yc
-    _residual(plan, x, y)
+    residual_add(plan, x, y)
     return y[: plan.m]
 
 
@@ -282,3 +283,60 @@ def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     return assemble_mm(plan, x, band_spmm_reference, dense_spmm_reference,
                        sparse_spmm_reference, stream2_reference,
                        stream_reference)
+
+
+# The microbenchmarks' shapes (scripts/microbench_{gather,scatter}.py of
+# the reference): one gather step reads src (512, 128) f32 at idx (512,
+# 128) int8 in groups of R rows; one scatter step walks S slabs of an
+# (S*8, 128) f32 csum with the int8 index planes pe (MB_PE_ROWS, 128).
+MB_ROWS = 512
+MB_GATHER_R = (8, 16, 32, 64)
+MB_SLABS = 13
+MB_ROUNDS = 8
+MB_PE_ROWS = max(3 * MB_SLABS * SUBS * MB_ROUNDS, 96 * MB_SLABS)
+MB_SCATTER_ARMS = ("rounds", "offs", "offs_nodep", "offs_noroll")
+
+
+def microbench_gather_reference(src: torch.Tensor, idx: torch.Tensor,
+                                r: int) -> torch.Tensor:
+    """One gather step: out[i, l] = sum over rows r' = i (mod 8) of
+    src[r', idx[r', l]], (8, 128). The group width r sets only how the
+    kernel walks the rows, not the result."""
+    if r not in MB_GATHER_R:
+        raise ValueError(f"microbench_gather: R = {r}, not in {MB_GATHER_R}")
+    u = src.gather(1, idx.long())
+    return u.view(MB_ROWS // SUBS, SUBS, LANES).sum(dim=0)
+
+
+def microbench_scatter_reference(arm: str, csum: torch.Tensor,
+                                 pe: torch.Tensor) -> torch.Tensor:
+    """One scatter step of `arm`, (8, 128). Slab s reads csum rows
+    s*8..s*8+7 (cs below); a lane gather g(a, rows)[i, l] = a[i, pe[rows
+    + i, l]].
+
+    * rounds: for round t, slab s, o = t*3*S*8 + s*8: out[q, l] +=
+      (g(cs, o) - g(cs, S*8 + o))[pe[2*S*8 + o + q, l], l];
+    * offs: per slab (base s*96) diff = g(cs, base) - g(cs, base + 8),
+      then pick d = g(diff, base + (2 + d)*8) for d < 8, each pick's sum
+      over slabs rolled down by d sublanes before the sum over d;
+    * offs_nodep: offs with diff = cs; offs_noroll: offs with no roll.
+    """
+    S = MB_SLABS
+    cs = csum.view(S, SUBS, LANES)
+    if arm == "rounds":
+        p = pe[: 3 * S * SUBS * MB_ROUNDS].view(
+            MB_ROUNDS, 3, S, SUBS, LANES).long()
+        c = cs.expand(MB_ROUNDS, S, SUBS, LANES)
+        diff = c.gather(3, p[:, 0]) - c.gather(3, p[:, 1])
+        return diff.gather(2, p[:, 2]).sum(dim=(0, 1))
+    if arm not in MB_SCATTER_ARMS:
+        raise ValueError(f"microbench_scatter: arm {arm!r}, not one of "
+                         f"{MB_SCATTER_ARMS}")
+    p = pe[: 96 * S].view(S, 12, SUBS, LANES).long()
+    diff = cs if arm == "offs_nodep" else (
+        cs.gather(2, p[:, 0]) - cs.gather(2, p[:, 1]))
+    picks = diff[:, None].expand(S, SUBS, SUBS, LANES).gather(
+        3, p[:, 2:10]).sum(dim=0)                          # (d, 8, 128)
+    if arm != "offs_noroll":
+        picks = torch.stack([picks[d].roll(d, 0) for d in range(SUBS)])
+    return picks.sum(dim=0)

@@ -1,0 +1,186 @@
+"""Per-class cost profiling and tracing hooks.
+
+Port of tilespmv_tpu/utils/profiling.py, the counterpart of the
+reference's per-format cost instrumentation (`DEBUG_FORMATCOST` /
+`formatprofile`, reference main.cu:12 and tilespmv_cuda.h:102-110,
+525-533): `profile_engines` times each execution-plan class on its own,
+so the cost of every class is visible, and `trace_context` records a
+`torch.profiler` trace for deep dives.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import pathlib
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..ops.cuda import kernels, reference
+
+
+def _timed(fn, *args, reps: int = 3, k1: int = 25, k2: int = 425) -> float:
+    """Difference-method timing of fn(*args), in seconds: the time of k2
+    calls minus the time of k1 calls, over k2 - k1, the median over
+    `reps` (after one run of each loop as warm-up), never below 1e-9 s.
+
+    When any argument is a tensor on a CUDA device, each loop is timed by
+    a pair of `torch.cuda.Event`s recorded on the current stream around
+    it (the second one synchronized); otherwise by `time.perf_counter`.
+    The fixed cost of a loop (the first launch's latency, the final
+    synchronization) cancels in the difference. A call that spends longer
+    on the host than on the device is timed at the host's launch rate.
+    The JAX version perturbs x by a result-dependent epsilon inside a
+    `fori_loop` because XLA could hoist a loop-invariant call out of the
+    loop; eager PyTorch runs every call it is given, so the loops here
+    are plain Python loops."""
+    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+    def loop(k: int) -> float:
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(k):
+                fn(*args)
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b) / 1e3
+        t0 = time.perf_counter()
+        for _ in range(k):
+            fn(*args)
+        return time.perf_counter() - t0
+
+    loop(k1)
+    loop(k2)
+    ts = []
+    for _ in range(reps):
+        ta = loop(k1)
+        tb = loop(k2)
+        ts.append((tb - ta) / (k2 - k1))
+    return max(float(np.median(ts)), 1e-9)
+
+
+def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
+    """Difference-method time of one grid step of a kernel on the card,
+    in seconds: `launch(n)` enqueues one launch of n steps (blocks); the
+    CUDA-event time of launch(n2) minus that of launch(n1), over n2 - n1,
+    the median over `reps` (after one warm-up launch of each size). With
+    n1 and n2 whole waves of blocks, the result is the chip's time per
+    step with every SM running steps together; the launch's fixed cost
+    and its last, partly filled wave cancel."""
+    def one(n: int) -> float:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch(n)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / 1e3
+
+    one(n1)
+    one(n2)
+    ts = []
+    for _ in range(reps):
+        ta = one(n1)
+        tb = one(n2)
+        ts.append((tb - ta) / (n2 - n1))
+    return float(np.median(ts))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_engines(op, x=None) -> dict[str, dict]:
+    """Per-class timing breakdown of a TileSpMV operator (f32 or f64).
+
+    Returns {class: {"us", "bytes", "gbps", ...}} with the classes
+    "dense", "band", "sparse_w{W}", "stream", "stream2" and "residual"
+    that the plan has, in the main path's order, and the class's counts
+    (dense and W-classes `chunks`, `t_lanes`; band `chunks`, `c_cols`;
+    stream classes `slabs`, `rounds`, `s_batch`). `bytes` counts the
+    class's value and index arrays (the reference's count); `gbps` is
+    bytes / time. Each class runs through its wrapper in
+    ops/cuda/kernels.py into its own zeroed y: on a CUDA operator that
+    launches the kernel (CUDA-event timing), on a CPU operator it runs
+    the plain version (host clock). The residual is timed with
+    reference.residual_add, the main path's `index_add_`. `x` defaults to
+    bench.py's (i % 10) / 4.
+    """
+    plan = op.device_plan()
+    if x is None:
+        x = (np.arange(plan.n) % 10) / 4.0
+    xt = torch.as_tensor(x, dtype=plan.dtype, device=op.device)
+    xp = reference.pad_x(plan, xt)
+
+    def timed(fn, cls, b: int, **counts) -> dict:
+        dt = _timed(fn, cls, xp, reference.zero_y(plan, xt))
+        return {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9, **counts}
+
+    out = {}
+    if plan.dense is not None:
+        d = plan.dense
+        out["dense"] = timed(kernels.dense_spmv, d, _nbytes(d.val, d.meta),
+                             chunks=int(d.val.shape[0]), t_lanes=d.t_lanes)
+    if plan.band is not None:
+        bd = plan.band
+        out["band"] = timed(kernels.band_spmv, bd, _nbytes(bd.val, bd.bloc),
+                            chunks=int(bd.val.shape[0]), c_cols=bd.c_cols)
+    for s in plan.sparses:
+        out[f"sparse_w{s.width}"] = timed(
+            kernels.sparse_spmv, s, _nbytes(s.val, s.meta),
+            chunks=int(s.val.shape[0]), t_lanes=s.t_lanes)
+    for key, st in (("stream", plan.stream), ("stream2", plan.stream2)):
+        if st is not None:
+            out[key] = timed(kernels.stream_spmv, st,
+                             _nbytes(st.val, st.vidx, st.planes),
+                             slabs=int(st.nslabs), rounds=st.rounds,
+                             s_batch=st.s_batch)
+    r = plan.residual
+    if r.val.shape[0]:
+        dt = _timed(lambda xu, y: reference.residual_add(plan, xu, y), xt,
+                    reference.zero_y(plan, xt))
+        b = _nbytes(r.val, r.row, r.col)
+        out["residual"] = {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9}
+    return out
+
+
+@contextlib.contextmanager
+def trace_context(logdir: str):
+    """`torch.profiler` trace of the block (host activity, and the card's
+    when one is present), written into `logdir` as a Chrome trace
+    (`trace.<pid>.<ns>.json`) when the block ends; yields the profiler
+    (e.g. for `key_averages()`). The counterpart of the reference's
+    `jax.profiler.start_trace` / `stop_trace` (there: the deep-dive
+    analog of the reference's gettimeofday spans, main.cu:62-65)."""
+    path = pathlib.Path(logdir)
+    path.mkdir(parents=True, exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    # one cycle: acc_events only keeps torch from warning that it clears
+    # events between cycles
+    prof = torch.profiler.profile(activities=acts, acc_events=True)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            str(path / f"trace.{os.getpid()}.{time.time_ns()}.json"))
+
+
+def card_line() -> str:
+    """The card's name and power limit, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    prints them for card 0."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
