@@ -13,13 +13,26 @@ Phases, each fatal on failure:
 3. main path — one `op(x)` per matrix with the kernel launch counters
    reset just before; every kernel must have launched, and the full y
    must pass the f64 CSR golden gates (1% + 1e-4 per row, and
-   rtol 2e-4 / atol 1e-4);
+   rtol 2e-4 / atol 1e-4); then each matrix's op(x) alone, for the
+   launches per call;
 4. kernels — each class kernel against its plain PyTorch version on the
-   card, on the flagship plan that uses it and a seeded uniform(-1, 1)
-   x (bench.py's dyadic x makes every f32 sum exact): one launch per
-   class, max |kernel - plain| <= 1e-5 * max(1, max|plain|) (the bound
-   allows for atomics adding in any order), and the median time of each
-   (CUDA events, after warm-up);
+   card, on the flagship plan that uses it (the stream kernel on
+   powerlaw_large's two classes and mixed_large's one, each class also
+   timed alone) and a seeded uniform(-1, 1) x (bench.py's dyadic x
+   makes every f32 sum exact): one launch per class, max |kernel -
+   plain| <= 1e-5 * max(1, max|plain|) (the bound allows for atomics
+   adding in any order), and the time of each: its device time
+   (`utils.profiling.graph_ms`: 20 calls in one CUDA graph) and, as in
+   earlier runs, the median CUDA-event time of a loop of calls, which
+   holds the wrappers' host time too; the stream kernel also at 1, 2, 4
+   and S slabs per block (blocks per class printed). Beside each time,
+   the yardstick: the bound (utils.profiling.class_bound: the classes'
+   nonzeros as CSR, bytes over 3.35 TB/s or flops over the peak,
+   whichever is larger) with the share of it the kernel reaches, and
+   the library call: one cuSPARSE product per class
+   (`torch.sparse_csr_tensor` of its nonzeros, reference.class_coo;
+   `torch.mv`, or `@` for SpMM), held to the plain version within the
+   kernel's bound and timed the same way;
 5. end to end — median ms and GFLOPS (2*nnz/t) per matrix for the
    kernel path and for the plain path;
 6. .mtx — tests/fixtures/bcsstk_style_sym.mtx through load_mtx and
@@ -63,10 +76,15 @@ Phases, each fatal on failure:
    its plain version on the card for every R and arm (one launch of one
    wave of steps, the phase-4 bound), with the kernel's time per step
    (the scripts' number), the plain version's time for one step, and
-   the time of a launch of one step.
+   the time of a launch of one step, and the bound per step (the
+   variant's operations over the FP32 peak, its inputs once over the
+   launch); no one PyTorch call computes a step, so these rows have no
+   library call.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
-of per-kernel results, then the last line
+of per-kernel results (launches on the main path and per call, error,
+ms, plain_ms, bound_ms and bound_by, library_ms, share of bound), then
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
 """
@@ -93,7 +111,8 @@ _TPU = "tilespmv_tpu/ops/pallas/kernels.py:"
 # name: (source, TPU kernel it replaces, matrix whose plan runs it)
 KERNELS = {
     "band": (_SRC + "band.cu", _TPU + "772", "banded_large"),
-    "stream": (_SRC + "stream.cu", _TPU + "1853", "powerlaw_large"),
+    "stream": (_SRC + "stream.cu", _TPU + "1853",
+               ("powerlaw_large", "mixed_large")),
     "dense": (_SRC + "dense.cu", _TPU + "679", "mixed_large"),
     "sparse": (_SRC + "sparse.cu", _TPU + "724", "mixed_large"),
 }
@@ -117,6 +136,17 @@ MB_KERNELS = {
     "microbench_scatter": (_SRC + "microbench_scatter.cu",
                            "scripts/microbench_scatter.py:98"),
 }
+# float operations per step of each microbenchmark variant, as its plain
+# version counts them: one add per gathered value (gather); a subtract
+# and an add per round and target of each slab (rounds); per slab the
+# differences (not offs_nodep) and the picks' adds, then the sum over
+# the 8 picks (offs arms)
+MB_OPS = {("microbench_gather", r): 512 * 128 for r in (8, 16, 32, 64)}
+MB_OPS.update({("microbench_scatter", "rounds"): 8 * 13 * 1024 * 2,
+               ("microbench_scatter", "offs"): (13 + 13 * 8 + 8) * 1024,
+               ("microbench_scatter", "offs_nodep"): (13 * 8 + 8) * 1024,
+               ("microbench_scatter", "offs_noroll"): (13 + 13 * 8 + 8)
+               * 1024})
 # right-hand sides of the SpMM phase's plan-level runs and comparisons
 K_MM = 8
 # op(x) calls per matrix and dtype in phase 9's trace
@@ -206,43 +236,110 @@ def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
         gate(f"{name} column {r}", y[:, r], golden(csr, x[:, r]))
 
 
-def class_bytes(cls) -> int:
-    """Bytes of a class's plan tensors (what one call must read)."""
+# plan fields a kernel does not read: the SpMV stream kernel reads erow
+# and not the round planes, stream2.cu the planes and not erow
+_UNREAD = {"stream": ("planes", "cfirst"), "stream_f64": ("planes", "cfirst"),
+           "stream2": ("erow", "cfirst")}
+# the stream kernel's slabs per block tried in phases 4 and 8 (S: all of
+# a step's slabs, the wrapper clamping the group to S)
+STREAM_GROUPS = {"1": 1, "2": 2, "4": 4, "S": 1 << 30}
+
+
+def class_bytes(cls, kname: str) -> int:
+    """Bytes of the plan tensors the kernel `kname` reads of a class."""
     return sum(t.numel() * t.element_size()
                for f in dataclasses.fields(cls)
-               if hasattr(t := getattr(cls, f.name), "element_size"))
+               if f.name not in _UNREAD.get(kname, ())
+               and hasattr(t := getattr(cls, f.name), "element_size"))
+
+
+def per_call_launches(calls: dict) -> dict:
+    """{matrix: launch counts of one call}, each call run alone with the
+    counters reset just before."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    out = {}
+    for name, fn in calls.items():
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = kernels.launch_counts()
+    return out
 
 
 def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
-                    k=None, tol=KERNEL_TOL) -> list:
+                    per_call, k=None, tol=KERNEL_TOL) -> list:
     """Each kernel of `table` against its plain version on the card, on
     all the classes of its kind in the plan of each of its matrices, with
     a seeded uniform(-1, 1) x in the plan's dtype: one launch per class,
-    the `tol` bound, median times. `k` None: SpMV (flat x and y); else
-    SpMM with x (rows, k) and y (ylen, k) (the stream pair on RHS 0 and
-    1). Returns the kernels' JSON entries (errors the largest, times
-    those of the first matrix), `launches` being the main path's
-    counts."""
+    the `tol` bound, median times, the bound and the library call (see
+    compare_on). `k` None: SpMV (flat x and y); else SpMM with x
+    (rows, k) and y (ylen, k) (the stream pair on RHS 0 and 1). Returns
+    the kernels' JSON entries (errors the largest, numbers those of the
+    first matrix, then by matrix), `launches` being the main path's
+    counts and `per_call` per_call_launches' of the main path's call."""
     results = []
     for kname, (src, replaces, mnames) in table.items():
+        mnames = (mnames,) if isinstance(mnames, str) else mnames
         runs = [compare_on(dev, card, kname, wrap, plain, ops[m], csrs[m],
-                           m, k, tol)
-                for m in ((mnames,) if isinstance(mnames, str) else mnames)]
-        results.append(dict(name=kname, route="cuda", source=src,
-                            replaces=replaces, launches=launches[kname],
-                            max_abs_err=max(r[0] for r in runs),
-                            ms=runs[0][1], plain_ms=runs[0][2]))
+                           m, k, tol) for m in mnames]
+        r0 = runs[0]
+        results.append(dict(
+            name=kname, route="cuda", source=src, replaces=replaces,
+            launches=launches[kname],
+            launches_per_call={m: per_call[m][kname] for m in mnames},
+            max_abs_err=max(r["err"] for r in runs), ms=r0["ms"],
+            call_ms=r0["call_ms"],
+            plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
+            bound_by=r0["bound_by"], library_ms=r0["library_ms"],
+            library="torch.sparse_csr_tensor (cuSPARSE) " + (
+                "mv" if k is None else "mm"),
+            share_of_bound=r0["bound_ms"] / r0["ms"],
+            kernel_over_library=r0["ms"] / r0["library_ms"]))
+        for f in ("ms_by_group", "by_class"):
+            if f in r0:
+                results[-1][f] = r0[f]
         if len(runs) > 1:
-            results[-1]["ms_by_matrix"] = {
-                m: r[1] for m, r in zip(mnames, runs)}
+            results[-1]["by_matrix"] = {
+                m: {f: r[f] for f in ("ms", "call_ms", "plain_ms",
+                                      "bound_ms", "library_ms", "by_class")
+                    if f in r}
+                for m, r in zip(mnames, runs)}
     return results
 
 
+def library_mats(classes, xp, ylen: int) -> list:
+    """One torch sparse CSR matrix per class on xp's device: the class's
+    nonzeros (reference.class_coo), int32 indices, shape (ylen, rows of
+    xp). The yardstick's input only: the port never calls it."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import reference
+    mats = []
+    for c in classes:
+        row, col, val = reference.class_coo(c)
+        order = np.lexsort((col, row))
+        crow = np.zeros(ylen + 1, np.int64)
+        np.cumsum(np.bincount(row, minlength=ylen), out=crow[1:])
+        mats.append(torch.sparse_csr_tensor(
+            torch.from_numpy(crow.astype(np.int32)).to(xp.device),
+            torch.from_numpy(col[order].astype(np.int32)).to(xp.device),
+            torch.from_numpy(val[order]).to(xp.device),
+            size=(ylen, xp.shape[0])))
+    return mats
+
+
 def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
-               tol) -> tuple:
-    """compare_kernels on one matrix: (max abs err, ms, plain ms)."""
+               tol) -> dict:
+    """compare_kernels on one matrix: {"err", "ms", "plain_ms",
+    "bound_ms", "bound_by", "library_ms"} (and the stream kernel's
+    "ms_by_group"). The bound is utils.profiling.class_bound over the
+    classes' nonzeros (k = 2 for the stream pair); the library call is
+    one cuSPARSE SpMV (`torch.mv`) or SpMM (`@`) per class on
+    library_mats, checked against the plain version within `tol` and
+    timed the same way as the kernel."""
     import torch
     from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    from tilespmv_tpu_torch.utils import profiling
     plan = op.device_plan()
     classes = class_lists(plan)[kname]
     if not classes:
@@ -255,9 +352,9 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     yp = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
     extra = (0,) if kname == "stream2" else ()
 
-    def run(fn, y):
+    def run(fn, y, **kw):
         for c in classes:
-            fn(c, xp, y, *extra)
+            fn(c, xp, y, *extra, **kw)
     before = kernels.launch_counts()[kname]
     run(wrap[kname], yk)
     run(plain[kname], yp)
@@ -272,15 +369,83 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     if not err <= bound:
         raise AssertionError(f"{kname}: max |kernel - plain| {err:.3e}"
                              f" > {bound:.3e}")
-    ms = cuda_ms(lambda: run(wrap[kname], yk), iters=20)
-    plain_ms = cuda_ms(lambda: run(plain[kname], yp), iters=3)
-    mb = sum(class_bytes(c) for c in classes) / 1e6
+    out = {"err": err}
+    # the library call on the same inputs, before the timing loops below
+    # add into yk and yp again
+    mats = library_mats(classes, xp, ylen)
+    pair = kname == "stream2"
+    xl = xp[:, :2].contiguous() if pair else xp
+
+    def lib():
+        return sum(torch.mv(a, xl) if k is None else a @ xl for a in mats)
+    lerr = float((lib() - (yp[:, :2] if pair else yp)).abs().max())
+    if not lerr <= bound:
+        raise AssertionError(f"{kname}: max |library - plain| {lerr:.3e}"
+                             f" > {bound:.3e}")
+    if kname in ("stream", "stream_f64"):
+        out["ms_by_group"] = {}
+        for g, group in STREAM_GROUPS.items():
+            yg = torch.zeros_like(yk)
+            run(wrap[kname], yg, group=group)
+            torch.cuda.synchronize()
+            gerr = float((yg - yp).abs().max())
+            if not gerr <= bound:
+                raise AssertionError(f"{kname} group {g}: max |kernel - "
+                                     f"plain| {gerr:.3e} > {bound:.3e}")
+            ms_g = out["ms_by_group"][g] = profiling.graph_ms(
+                lambda: run(wrap[kname], yg, group=group))
+            log(f"kernel {kname} on {mname}, group {g}: blocks "
+                f"{[kernels.stream_blocks(c, group) for c in classes]} "
+                f"(S {[c.s_batch for c in classes]}), max abs err "
+                f"{gerr:.3e}, {ms_g:.4f} ms [{card}]")
+    ms = out["ms"] = profiling.graph_ms(lambda: run(wrap[kname], yk))
+    call_ms = out["call_ms"] = cuda_ms(lambda: run(wrap[kname], yk),
+                                       iters=20)
+    plain_ms = out["plain_ms"] = cuda_ms(lambda: run(plain[kname], yp),
+                                         iters=3)
+    # the yardstick: the bound, and the library call's time
+    kk = 1 if k is None else (2 if kname == "stream2" else k)
+    bnd = profiling.class_bound(classes, k=kk)
+    out.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+    try:
+        lib_ms = profiling.graph_ms(lib)
+    except RuntimeError as e:     # cuSPARSE refused the graph capture
+        log(f"library {kname}: no graph capture ({e}); timed by events")
+        lib_ms = cuda_ms(lib, iters=20)
+    out["library_ms"] = lib_ms
+    if kname in ("stream", "stream_f64"):
+        out["by_class"] = [stream_class_line(
+            card, kname, mname, i, c, mats[i], xp, yk, wrap[kname])
+            for i, c in enumerate(classes)]
+    mb = sum(class_bytes(c, kname) for c in classes) / 1e6
     log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
-        f"{mb:.1f} MB of plan, launches +{delta}"
+        f"{mb:.1f} MB of plan read, launches +{delta}"
         f"{'' if k is None else f', k {k}'}): max abs err {err:.3e} "
         f"(bound {bound:.3e}), max rel err {rel:.3e}, {ms:.4f} ms "
-        f"({mb / ms:.0f} GB/s) vs plain {plain_ms:.4f} ms [{card}]")
-    return err, ms, plain_ms
+        f"({mb / ms:.0f} GB/s; {call_ms:.4f} ms a call with the wrapper's "
+        f"host time) vs plain {plain_ms:.4f} ms; bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+        f"({bnd['bytes'] / 1e6:.2f} MB, {bnd['flops'] / 1e6:.2f} MFLOP), "
+        f"share of bound {bnd['bound_ms'] / ms:.3f}; library "
+        f"{lib_ms:.4f} ms (max abs err {lerr:.3e}), kernel / library "
+        f"{ms / lib_ms:.2f} [{card}]")
+    return out
+
+
+def stream_class_line(card, kname, mname, i, cls, mat, xp, y, wrap) -> dict:
+    """One stream class alone: the kernel's device time, its bound and
+    the library call's time (as compare_on), printed; returns them."""
+    import torch
+    from tilespmv_tpu_torch.utils import profiling
+    ms = profiling.graph_ms(lambda: wrap(cls, xp, y))
+    bnd = profiling.class_bound([cls])
+    lib_ms = profiling.graph_ms(lambda: torch.mv(mat, xp))
+    log(f"kernel {kname} on {mname} class {i} ({cls.nslabs} slabs, S "
+        f"{cls.s_batch}): {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']}, share of bound {bnd['bound_ms'] / ms:.3f}; "
+        f"library {lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f} "
+        f"[{card}]")
+    return dict(ms=ms, bound_ms=bnd["bound_ms"], library_ms=lib_ms)
 
 
 def spmm_phase(dev, card, ops, csrs) -> list:
@@ -295,6 +460,9 @@ def spmm_phase(dev, card, ops, csrs) -> list:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"spmm main path (k {K_MM}) launches: {launches}")
+    per_call = per_call_launches({n: (lambda n=n: ops[n].matmat(xd[n]))
+                                  for n in FLAGSHIP})
+    log(f"launches per matmat (k {K_MM}): {json.dumps(per_call)}")
     for name in SPMM_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -327,7 +495,7 @@ def spmm_phase(dev, card, ops, csrs) -> list:
              "sparse_spmm": reference.sparse_spmm_reference,
              "stream2": reference.stream2_reference}
     results = compare_kernels(dev, card, SPMM_KERNELS, wrap, plain, ops,
-                              csrs, launches, k=K_MM)
+                              csrs, launches, per_call, k=K_MM)
 
     # end to end at k = 8
     for n in FLAGSHIP:
@@ -387,6 +555,9 @@ def f64_phase(dev, card, csrs, f32_ms) -> tuple:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     log(f"f64 main path launches: {launches}")
+    per_call = per_call_launches({n: (lambda n=n: ops[n](xd[n]))
+                                  for n in FLAGSHIP})
+    log(f"launches per f64 op(x): {json.dumps(per_call)}")
     for name in F64_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -425,9 +596,9 @@ def f64_phase(dev, card, csrs, f32_ms) -> tuple:
             "stream_f64": kernels.stream_spmv}
     plain = {"band_f64": reference.band_reference,
              "dense_f64": reference.dense_reference,
-             "stream_f64": reference.stream_reference}
+             "stream_f64": reference.stream_rows_reference}
     results = compare_kernels(dev, card, F64_KERNELS, wrap, plain, ops,
-                              csrs, launches, tol=KERNEL_TOL_F64)
+                              csrs, launches, per_call, tol=KERNEL_TOL_F64)
 
     # end to end
     f64_ms = {}
@@ -563,11 +734,19 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
                       a, *s_in[a]))
             for arm in reference.MB_SCATTER_ARMS},
     }
+    inputs = {"microbench_gather": {r: g_in for r in runs[
+        "microbench_gather"]}, "microbench_scatter": s_in}
     results = []
     for name, (src, replaces) in MB_KERNELS.items():
-        errs, ms, plain_ms, one_ms = {}, {}, {}, {}
+        errs, ms, plain_ms, one_ms, bnd = {}, {}, {}, {}, {}
         for v, (run, plain) in runs[name].items():
             wave = sms * kernels.microbench_blocks_per_sm(name, v)
+            # per step: the inputs and the (8, 128) result once over the
+            # timed launch of 64 waves, and the variant's operations
+            nbytes = 8 * 128 * 4 + sum(t.numel() * t.element_size()
+                                       for t in inputs[name][v])
+            bnd[v] = profiling.roofline(nbytes / (64 * wave),
+                                        MB_OPS[name, v], 4)
             before = kernels.launch_counts()[name]
             out = run(wave)
             want = plain()
@@ -585,15 +764,27 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
             log(f"kernel {name} {v}: max abs err {err:.3e} (bound "
                 f"{bound:.3e}, {wave} steps); per step: kernel "
                 f"{ms[v] * 1e6:.3f} ns (whole chip, above) vs plain "
-                f"{plain_ms[v] * 1e6:.1f} ns; a launch of one step "
+                f"{plain_ms[v] * 1e6:.1f} ns, bound "
+                f"{bnd[v]['bound_ms'] * 1e6:.3f} ns by "
+                f"{bnd[v]['bound_by']} (share "
+                f"{bnd[v]['bound_ms'] / ms[v]:.3f}); a launch of one step "
                 f"{one_ms[v]:.4f} ms [{card}]")
         first = next(iter(ms))
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=max(errs.values()),
+            launches=launches[name],
+            launches_per_call={"timeit": launches[name] // len(ms)},
+            max_abs_err=max(errs.values()),
             ms=ms[first], plain_ms=plain_ms[first],
+            bound_ms=bnd[first]["bound_ms"],
+            bound_by=bnd[first]["bound_by"], library_ms=None,
+            library="none: no one PyTorch call gathers and sums as the "
+                    "step does",
+            share_of_bound=bnd[first]["bound_ms"] / ms[first],
             ms_by_variant={str(v): t for v, t in ms.items()},
             plain_ms_by_variant={str(v): t for v, t in plain_ms.items()},
+            bound_ms_by_variant={str(v): b["bound_ms"]
+                                 for v, b in bnd.items()},
             one_step_launch_ms={str(v): t for v, t in one_ms.items()}))
     return results
 
@@ -657,6 +848,9 @@ def main() -> int:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "main path")
+    per_call = per_call_launches({n: (lambda n=n: ops[n](xs[n]))
+                                  for n in FLAGSHIP})
+    log(f"launches per op(x): {json.dumps(per_call)}")
     refs = {n: golden(csrs[n], bench_x(csrs[n].n)) for n in FLAGSHIP}
     for n in FLAGSHIP:
         y = ys[n].cpu().numpy()
@@ -670,9 +864,9 @@ def main() -> int:
     plain = {"band": reference.band_reference,
              "dense": reference.dense_reference,
              "sparse": reference.sparse_reference,
-             "stream": reference.stream_reference}
+             "stream": reference.stream_rows_reference}
     results = compare_kernels(dev, card, KERNELS, wrap, plain, ops, csrs,
-                              launches)
+                              launches, per_call)
 
     # 5. end to end
     f32_ms = {}

@@ -11,6 +11,8 @@ Tolerance: max |kernel - plain| <= 1e-5 * max(1, max|plain|) — the
 order of float32 atomic adds varies from run to run; 1e-12 for the f64
 kernels (float64 atomics), whose operator is held to the float64 golden
 at max |y - golden| / (1 + |A|·|x|) <= 1e-12."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ import torch
 from tilespmv_tpu_torch import TileSpMV
 from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import kernels, reference
+from tilespmv_tpu_torch.ops.cuda import stream_plan as sp
 from tilespmv_tpu_torch.scripts import microbench_gather, microbench_scatter
 from tilespmv_tpu_torch.utils import profiling
 
@@ -34,7 +37,7 @@ MATRICES = {
 PAIRS = {"band": (kernels.band_spmv, reference.band_reference),
          "dense": (kernels.dense_spmv, reference.dense_reference),
          "sparse": (kernels.sparse_spmv, reference.sparse_reference),
-         "stream": (kernels.stream_spmv, reference.stream_reference)}
+         "stream": (kernels.stream_spmv, reference.stream_rows_reference)}
 MM_PAIRS = {
     "band": ("band_spmm", kernels.band_spmm, reference.band_spmm_reference),
     "dense": ("dense_spmm", kernels.dense_spmm,
@@ -185,6 +188,82 @@ def test_f64_kernels_match_plain_versions(name, device):
     y = op(x)
     assert y.dtype == torch.float64
     assert np.max(np.abs(y.cpu().numpy() - gold) / (1 + mag)) <= 1e-12
+
+
+def _entries(seed, m, n, nnz, heavy_rows=0):
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, m, nnz).astype(np.int64)
+    col = rng.integers(0, n, nnz).astype(np.int64)
+    if heavy_rows:
+        row[: nnz // 3] = rng.integers(0, heavy_rows, nnz // 3)
+    _, ix = np.unique(row * n + col, return_index=True)
+    return row[ix], col[ix], rng.standard_normal(ix.size), m, n
+
+
+def _skewed(seed=7, n_windows=24):
+    """Two heavy windows and many light ones: a split (base, heavy)
+    pair."""
+    rng = np.random.default_rng(seed)
+    m = n = n_windows * 1024
+    rows, cols = [], []
+    for w in range(n_windows):
+        k = 40000 if w < 2 else 8
+        rows.append(rng.integers(w * 1024, (w + 1) * 1024, k))
+        cols.append(rng.integers(0, n if w < 2 else 8192, k))
+    key = np.unique(np.concatenate(rows).astype(np.int64) * n
+                    + np.concatenate(cols))
+    return key // n, key % n, rng.standard_normal(key.size), m, n
+
+
+# stream classes straight from the builders: (entries, builder)
+STREAM_CLASSES = {
+    "mono": (lambda: _entries(1, 4096, 4096, 30000, heavy_rows=3),
+             dict(span_rows=64, dual=False)),
+    "dual": (lambda: _entries(11, 16384, 16384, 100_000),
+             dict(span_rows=64, dual=True)),
+    "xmap": (lambda: _entries(4, 65536, 65536, 4000), dict(fp=True)),
+    "split_pair": (_skewed, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STREAM_CLASSES))
+def test_stream_kernel_matches_rows_reference(case, dtype, device):
+    """stream.cu at every slabs-per-block group against
+    stream_rows_reference: 1e-5 (f32) or 1e-12 (f64) of max(1, max|y|)."""
+    make, kw = STREAM_CLASSES[case]
+    row, col, val, m, n = make()
+    cdt = np.float64 if dtype == torch.float64 else np.float32
+    if kw is None:
+        classes = sp.build_stream_classes(row, col, val, m, span_rows=64,
+                                          dual=True, compute_dtype=cdt)
+        assert classes[1] is not None
+    else:
+        classes = (sp.build_stream_chunks(row, col, val, m,
+                                          compute_dtype=cdt, **kw),)
+    assert (classes[0].xmap is not None) == (case == "xmap")
+    x = np.random.default_rng(2).uniform(-1, 1, n)
+    rows = -(-n // 128) + sp.MAX_SPAN_ROWS
+    xp = torch.zeros(-(-rows // sp.SPAN_ROWS) * sp.SPAN_ROWS * 128,
+                     dtype=dtype, device=device)
+    xp[:n] = torch.from_numpy(x)
+    ylen = max(1, -(-m // 1024)) * 1024
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for st in classes:
+        st = dataclasses.replace(st, **{
+            f.name: torch.as_tensor(getattr(st, f.name), device=device)
+            for f in dataclasses.fields(st)
+            if f.type == "Any" and getattr(st, f.name) is not None})
+        yp = reference.stream_rows_reference(
+            st, xp, torch.zeros(ylen, dtype=dtype, device=device))
+        for group in (1, 2, 4, st.s_batch):
+            yk = torch.zeros(ylen, dtype=dtype, device=device)
+            kernels.stream_spmv(st, xp, yk, group=group)
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max())
+            assert err <= tol * max(1.0, float(yp.abs().max())), (group,
+                                                                   err)
+        assert float(yp.abs().max()) > 0
 
 
 def _mb_check(name, run, plain) -> None:

@@ -1,5 +1,6 @@
 """Each plain PyTorch class version in float64 (the plain versions of
-the f64 band, dense and stream kernels) against tilespmv_tpu's Pallas
+the f64 band, dense and stream kernels; the stream class in both its
+planes' and its per-entry rows' form) against tilespmv_tpu's Pallas
 df64 arm in interpret mode, on the identical f64 plan (carried across by
 lane_plan_from_jax).
 
@@ -120,8 +121,9 @@ def torch_class(st):
         if f.type == "Any" and getattr(st, f.name) is not None})
 
 
-def _stream_compare(jst, n, m, mag, seed=0):
-    """One df64 stream class both ways, on the class's windows."""
+def _stream_compare(jst, n, m, mag, seed=0, fn=ref.stream_reference):
+    """One df64 stream class both ways (`fn` the torch side), on the
+    class's windows."""
     x = x_for(n, seed)
     rows = -(-n // 128) + jsp.MAX_SPAN_ROWS
     rows = -(-rows // jsp.SPAN_ROWS) * jsp.SPAN_ROWS
@@ -135,7 +137,7 @@ def _stream_compare(jst, n, m, mag, seed=0):
     tst = torch_class(stream_chunks_from_jax(jst))
     assert tst.val.dtype == torch.float64
     yt = torch.zeros(nw * 1024, dtype=torch.float64)
-    ref.stream_reference(tst, torch.from_numpy(xpad), yt)
+    fn(tst, torch.from_numpy(xpad), yt)
     mine = np.zeros(nw, bool)
     mine[np.asarray(jst.cw)] = True
     sel = np.repeat(mine, 1024)[:m]
@@ -165,6 +167,28 @@ def test_f64_split_stream_halves_match_df64_interpret(dual):
     assert heavy is not None and base.df64 and heavy.df64
     for st in (base, heavy):
         _stream_compare(st, n, m, lambda x: magnitude(row, col, val, x, m))
+
+
+@pytest.mark.parametrize("name", ["stream_mono", "dense_t128"])
+def test_f64_stream_rows_reference_matches_df64_interpret(name):
+    csr = MATRICES[name]()
+    jplan, _ = plans(csr)
+    for st in (jplan.stream, jplan.stream2):
+        if st is not None:
+            _stream_compare(st, csr.n, csr.m,
+                            lambda x: csr_magnitude(csr, x),
+                            fn=ref.stream_rows_reference)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_f64_split_stream_halves_rows_match_df64_interpret(dual):
+    row, col, val, m, n = _skewed()
+    (base, heavy), _ = jsp.build_stream_classes(
+        row, col, val, m, compute_dtype=jnp.float64, span_rows=64,
+        dual=dual)
+    for st in (base, heavy):
+        _stream_compare(st, n, m, lambda x: magnitude(row, col, val, x, m),
+                        fn=ref.stream_rows_reference)
 
 
 def test_f64_plan_moves_to_torch_in_float64():

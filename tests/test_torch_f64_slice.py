@@ -1,4 +1,4 @@
-"""The port's whole f64 slice on the CPU: TileSpMV(csr,
+"""The port's whole f64 slice on the CPU: TileSpMV(csr, device="cpu",
 dtype=torch.float64) against tilespmv_tpu's TileSpMV(csr,
 compute_dtype=jnp.float64) (its Pallas df64 path in interpret mode) and
 against the float64 CSR golden; f64 matmat one SpMV per column; dtypes
@@ -56,7 +56,7 @@ def test_f64_tilespmv_matches_reference_and_golden(name):
     csr = make(t_gen, TCSR, name)
     x = np.random.default_rng(1).standard_normal(csr.n)
     before = kernels.launch_counts()
-    op = TileSpMV(csr, dtype=torch.float64)
+    op = TileSpMV(csr, device="cpu", dtype=torch.float64)
     y = op(x)
     assert y.dtype == torch.float64 and y.shape == (csr.m,)
     assert kernels.launch_counts() == before    # plain versions only
@@ -74,7 +74,7 @@ def test_f64_tilespmv_matches_reference_and_golden(name):
 @pytest.mark.parametrize("k", [1, 3])
 def test_f64_matmat_one_spmv_per_column(k):
     csr = make(t_gen, TCSR, "mixed_xmap")
-    op = TileSpMV(csr, dtype=torch.float64)
+    op = TileSpMV(csr, device="cpu", dtype=torch.float64)
     x = np.random.default_rng(k).uniform(-1, 1, (csr.n, k))
     before = kernels.launch_counts()
     got = op.matmat(x)
@@ -90,7 +90,7 @@ def test_f64_matmat_one_spmv_per_column(k):
 
 def test_f64_mtx_entry_and_dtype_checks():
     csr = load_mtx("tests/fixtures/bcsstk_style_sym.mtx")
-    op = TileSpMV(csr, dtype=torch.float64)
+    op = TileSpMV(csr, device="cpu", dtype=torch.float64)
     x = np.linspace(-1, 1, csr.n)
     gold, mag = golden_and_mag(csr, x)
     assert rel_err(op(x).numpy(), gold, mag) <= 1e-12
@@ -99,10 +99,10 @@ def test_f64_mtx_entry_and_dtype_checks():
     assert op(x.astype(np.float32)).dtype == torch.float64
     for bad in (torch.bfloat16, torch.float16, torch.int32):
         with pytest.raises(ValueError):
-            TileSpMV(csr, dtype=bad)
+            TileSpMV(csr, device="cpu", dtype=bad)
     # the wrappers take x and y of the class's dtype; on CPU tensors
     # they run the plain f64 versions and launch nothing
-    plan = TileSpMV(make(t_gen, TCSR, "mixed_xmap"),
+    plan = TileSpMV(make(t_gen, TCSR, "mixed_xmap"), device="cpu",
                     dtype=torch.float64).device_plan()
     xp = reference.pad_x(plan, torch.linspace(-1, 1, plan.n,
                                               dtype=torch.float64))
@@ -110,7 +110,8 @@ def test_f64_mtx_entry_and_dtype_checks():
     before = kernels.launch_counts()
     for wrap, plain, cls in (
             (kernels.dense_spmv, reference.dense_reference, plan.dense),
-            (kernels.stream_spmv, reference.stream_reference, plan.stream)):
+            (kernels.stream_spmv, reference.stream_rows_reference,
+             plan.stream)):
         ya = torch.zeros(ylen, dtype=torch.float64)
         yb = torch.zeros(ylen, dtype=torch.float64)
         assert wrap(cls, xp, ya) is ya

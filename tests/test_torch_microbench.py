@@ -18,9 +18,10 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from tilespmv_tpu_torch.ops.cuda import kernels, reference
+from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.scripts import microbench_gather as t_gather
 from tilespmv_tpu_torch.scripts import microbench_scatter as t_scatter
+from tilespmv_tpu_torch.scripts import stream_probes
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 TOL = 1e-5
@@ -109,7 +110,8 @@ def test_microbench_wrappers_refuse_bad_inputs():
 
 
 @pytest.mark.parametrize("script,argv", [
-    (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"])])
+    (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"]),
+    (stream_probes, None)])
 def test_scripts_exit_nonzero_without_cuda(script, argv, monkeypatch,
                                            capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -117,3 +119,19 @@ def test_scripts_exit_nonzero_without_cuda(script, argv, monkeypatch,
     assert rc != 0
     out = capsys.readouterr()
     assert out.out == "" and "CUDA" in out.err
+
+
+def test_stream_probes_edit_the_kernel_source():
+    """Each probe of scripts/stream_probes.py is one edit of stream.cu as
+    it stands: the x gather gone (nogather), the segmented scan gone
+    (noscan), or both (loads)."""
+    src = (build.CSRC_DIR / "stream.cu").read_text()
+    out = {name: edit(src) for name, edit in stream_probes.PROBES.items()}
+    for name, o in out.items():
+        assert o != src and o.count("{") == o.count("}"), name
+    gather = "v[u] * x["
+    assert gather not in out["nogather"] and gather in out["noscan"]
+    assert "__shfl_up_sync" in out["nogather"]
+    assert "__shfl_up_sync" not in out["noscan"]
+    assert gather not in out["loads"]
+    assert "__shfl_up_sync" not in out["loads"]

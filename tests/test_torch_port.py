@@ -1,8 +1,8 @@
 """Structural guarantees of the port: tilespmv_tpu_torch never imports
-JAX or tilespmv_tpu; a class wrapper runs its plain version only for
-CPU tensors and otherwise launches its kernel or raises; a failed CUDA
-build raises; the native host library is built into the port's own
-build directory."""
+JAX or tilespmv_tpu; the operator runs on the card unless asked for the
+CPU; a class wrapper runs its plain version only for CPU tensors and
+otherwise launches its kernel or raises; a failed CUDA build raises; the
+native host library is built into the port's own build directory."""
 import ast
 import pathlib
 
@@ -50,7 +50,7 @@ def test_wrappers_use_plain_version_on_cpu():
     before = kernels.launch_counts()
     for wrap, plain, cls in (
             (kernels.dense_spmv, reference.dense_reference, plan.dense),
-            (kernels.stream_spmv, reference.stream_reference,
+            (kernels.stream_spmv, reference.stream_rows_reference,
              plan.stream)):
         ya = torch.zeros(plan.y_padded_len)
         yb = torch.zeros(plan.y_padded_len)
@@ -60,6 +60,19 @@ def test_wrappers_use_plain_version_on_cpu():
     assert kernels.launch_counts() == before
     torch.testing.assert_close(kernels.spmv_cuda(plan, x),
                                reference.spmv_reference(plan, x))
+
+
+def test_operator_defaults_to_the_card(monkeypatch):
+    """TileSpMV without a device runs on the card, and raises where there
+    is none: it never falls back to the CPU silently."""
+    from tilespmv_tpu_torch import TileSpMV
+    csr = generate.mixed_structure(512, 512, seed=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TileSpMV(csr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TileSpMV(csr, dtype=torch.float64)
+    assert TileSpMV(csr, device="cpu").device.type == "cpu"
 
 
 def test_wrapper_refuses_other_devices_and_bad_inputs():

@@ -109,7 +109,7 @@ def test_profile_engines_matches_reference_plan(name, dtype, short_timed):
     jplan = build_lane_plan(MATRICES[name](jpkg, j_gen),
                             compute_dtype=j_dtype)
     want = jax_profile_fields(jplan)
-    op = TileSpMV(MATRICES[name](tpkg, t_gen), dtype=t_dtype)
+    op = TileSpMV(MATRICES[name](tpkg, t_gen), device="cpu", dtype=t_dtype)
     before = kernels.launch_counts()
     prof = profiling.profile_engines(op)
     assert kernels.launch_counts() == before
@@ -127,7 +127,7 @@ def test_profile_engines_matches_reference_plan(name, dtype, short_timed):
 def test_profile_engines_times_each_class_once_per_call(monkeypatch):
     """Each class is timed through its own wrapper into its own zeroed y,
     on the padded x; the residual on the unpadded x."""
-    op = TileSpMV(t_gen.mixed_structure(512, 512, seed=7))
+    op = TileSpMV(t_gen.mixed_structure(512, 512, seed=7), device="cpu")
     calls = []
 
     def fake(fn, *args, **kw):
@@ -184,15 +184,17 @@ def test_interleaved_ab_matches_reference(names, monkeypatch, capsys):
 
 def test_spmv_arms_and_build_op_variant():
     csr = t_gen.mixed_structure(512, 512, seed=7)
-    op = TileSpMV(csr)
+    op = TileSpMV(csr, device="cpu")
     kinds = [c["kind"] for c in op.summary["classes"]]
     assert "stream" in kinds
     old = lane_plan.STREAM_MIN_ENTRIES
     no_stream = abtest.build_op_variant(csr, lane_plan,
-                                        {"STREAM_MIN_ENTRIES": 10 ** 9})
+                                        {"STREAM_MIN_ENTRIES": 10 ** 9},
+                                        device="cpu")
     assert lane_plan.STREAM_MIN_ENTRIES == old
     assert "stream" not in [c["kind"] for c in no_stream.summary["classes"]]
-    f64 = abtest.build_op_variant(csr, lane_plan, {}, dtype=torch.float64)
+    f64 = abtest.build_op_variant(csr, lane_plan, {}, device="cpu",
+                                  dtype=torch.float64)
     assert f64.dtype == torch.float64
     x = np.linspace(-1, 1, csr.n)
     arms = abtest.spmv_arms({"base": op, "no_stream": no_stream,
@@ -210,7 +212,7 @@ def test_spmv_arms_and_build_op_variant():
 
 
 def test_trace_context_writes_a_trace(tmp_path):
-    op = TileSpMV(t_gen.mixed_structure(512, 512, seed=7))
+    op = TileSpMV(t_gen.mixed_structure(512, 512, seed=7), device="cpu")
     x = np.linspace(-1, 1, 512)
     with profiling.trace_context(tmp_path / "trace") as prof:
         op(x)

@@ -56,7 +56,7 @@ def test_tilespmv_cpu_matches_interpret_and_golden(name):
 
 def test_tilespmv_module_buffers_and_mtx_entry():
     csr = load_mtx("tests/fixtures/bcsstk_style_sym.mtx")
-    op = TileSpMV(csr)
+    op = TileSpMV(csr, device="cpu")
     assert op.shape == csr.shape
     names = dict(op.named_buffers())
     assert names and all(isinstance(b, torch.Tensor)
@@ -81,7 +81,7 @@ def test_tilespmv_residual_path():
     from tilespmv_tpu_torch import TileConfig, tile_create
     kw = dict(enable_hyb=True, hyb_cv_threshold=0.3, hyb_max_coo=64)
     csr = t_gen.power_law(512, 512, 20, seed=14)
-    op = TileSpMV(tile_create(csr, TileConfig(**kw)))
+    op = TileSpMV(tile_create(csr, TileConfig(**kw)), device="cpu")
     assert op.residual_val.numel() > 0
     x = np.linspace(-1, 1, csr.n).astype(np.float32)
     y = op(x).numpy()

@@ -70,7 +70,7 @@ def test_matmat_cpu_matches_interpret_and_golden(name, k):
 
 def test_matmul_ranks_and_plan_counts():
     csr = t_gen.mixed_structure(512, 512, seed=1)
-    op = TileSpMV(csr)
+    op = TileSpMV(csr, device="cpu")
     x = np.linspace(-1, 1, csr.n).astype(np.float32)
     assert torch.equal(op @ x, op(x))
     with pytest.raises(ValueError):

@@ -1,7 +1,10 @@
-"""The plain PyTorch stream-class version against tilespmv_tpu's Pallas
+"""The plain PyTorch stream-class versions against tilespmv_tpu's Pallas
 stream kernel in interpret mode, on identical slabs (mono, dual-span,
 wide-span, free-placement and the two halves of a split class), plus
-both against the exact scatter-add golden.
+both against the exact scatter-add golden: the planes' form
+(stream_reference, stream2.cu's plain version) and the per-entry rows'
+form (stream_rows_reference, stream.cu's), which also agree with each
+other.
 
 Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) (different f32
 summation order)."""
@@ -52,9 +55,10 @@ def _torch_class(st):
         if f.type == "Any" and getattr(tst, f.name) is not None})
 
 
-def _compare(st, row, col, val, m, n, seed=0):
-    """Run one class both ways; check agreement on the class's windows
-    and against the golden there."""
+def _compare(st, row, col, val, m, n, seed=0, fn=ref.stream_reference):
+    """Run one class both ways (`fn` the torch side); check agreement on
+    the class's windows and against the golden there; returns the torch
+    y and padded x."""
     x = np.random.default_rng(seed).uniform(-1, 1, n).astype(np.float32)
     rows = -(-n // 128) + jsp.MAX_SPAN_ROWS
     rows = -(-rows // jsp.SPAN_ROWS) * jsp.SPAN_ROWS
@@ -65,7 +69,7 @@ def _compare(st, row, col, val, m, n, seed=0):
         st, jnp.asarray(xpad.reshape(-1, 128)), nw, interpret=True))
     yj = yj.reshape(8, nw, 128).transpose(1, 0, 2).reshape(-1)
     yt = torch.zeros(nw * 1024)
-    ref.stream_reference(_torch_class(st), torch.from_numpy(xpad), yt)
+    fn(_torch_class(st), torch.from_numpy(xpad), yt)
     yt = yt.numpy()
     mine = np.zeros(nw, bool)
     mine[np.asarray(st.cw)] = True
@@ -78,6 +82,7 @@ def _compare(st, row, col, val, m, n, seed=0):
     gold = np.zeros(nw * 1024)
     np.add.at(gold, row[sel], val[sel] * x[col[sel]].astype(np.float64))
     assert np.max(np.abs(got_rows - gold) / (1 + np.abs(gold))) < 1e-4
+    return yt, xpad
 
 
 CASES = {
@@ -109,3 +114,31 @@ def test_split_stream_halves_match_interpret(dual):
     assert heavy is not None
     for st in (base, heavy):
         _compare(st, row, col, val, m, n)
+
+
+def _rows_compare(st, row, col, val, m, n):
+    """stream_rows_reference against the interpret kernel, the golden
+    and stream_reference."""
+    yr, xpad = _compare(st, row, col, val, m, n,
+                        fn=ref.stream_rows_reference)
+    yp = torch.zeros(yr.shape[0])
+    ref.stream_reference(_torch_class(st), torch.from_numpy(xpad), yp)
+    yp = yp.numpy()
+    assert np.max(np.abs(yr - yp)) <= TOL * max(1.0, np.max(np.abs(yp)))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stream_rows_reference_matches_interpret(case):
+    make, kw = CASES[case]
+    row, col, val, m, n = make()
+    st, _ = jsp.build_stream_chunks(row, col, val, m, **kw)
+    _rows_compare(st, row, col, val, m, n)
+
+
+@pytest.mark.parametrize("dual", [False, True])
+def test_split_stream_halves_rows_reference_match_interpret(dual):
+    row, col, val, m, n = _skewed()
+    (base, heavy), _ = jsp.build_stream_classes(row, col, val, m,
+                                                span_rows=64, dual=dual)
+    for st in (base, heavy):
+        _rows_compare(st, row, col, val, m, n)

@@ -7,8 +7,9 @@ double-f32 (df64) plan becomes this package's f64 plan: each value array
 is the reference's f32 parts summed in float64 (dense a1 + a2 + vl from
 rows 3j, 3j+1, 3j+2; band hi + lo from planes 2c, 2c+1; stream
 val + val_lo) in the f32 layout, and the segmented-scan planes
-(`segmask`) are dropped. This module imports nothing of JAX: the caller
-passes the object in.
+(`segmask`) are dropped. Stream classes gain this package's per-entry
+rows (`erow`), derived from their planes. This module imports nothing
+of JAX: the caller passes the object in.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 
 from .ops.cuda.lane_plan import (BandChunks, DenseChunks, LanePlan,
                                  SparseChunks)
-from .ops.cuda.stream_plan import StreamChunks
+from .ops.cuda.stream_plan import StreamChunks, with_entry_rows
 from .ops.plan import ResidualEngine
 
 
@@ -30,6 +31,8 @@ def _convert(cls, obj, **override):
         return None
     kw = {}
     for f in dataclasses.fields(cls):
+        if f.name in override:
+            continue
         v = getattr(obj, f.name)
         kw[f.name] = v if v is None or isinstance(
             v, (bool, int, str)) else np.asarray(v)
@@ -47,7 +50,8 @@ def _f64(*parts) -> np.ndarray:
 
 def stream_chunks_from_jax(st) -> StreamChunks:
     """This package's StreamChunks holding `st`'s arrays (rounds scatter
-    only; a df64 class as f64 values val + val_lo); None for None."""
+    only; a df64 class as f64 values val + val_lo), with the per-entry
+    rows `erow` derived from its planes; None for None."""
     if st is None:
         return None
     if st.scatter != "rounds":
@@ -56,8 +60,9 @@ def stream_chunks_from_jax(st) -> StreamChunks:
     if not st.df64:
         if st.segmask is not None:
             raise NotImplementedError("segmask on an f32 stream class")
-        return _convert(StreamChunks, st)
-    return _convert(StreamChunks, st, val=_f64(st.val, st.val_lo))
+        return with_entry_rows(_convert(StreamChunks, st, erow=None))
+    return with_entry_rows(_convert(StreamChunks, st, erow=None,
+                                    val=_f64(st.val, st.val_lo)))
 
 
 def _dense(d):

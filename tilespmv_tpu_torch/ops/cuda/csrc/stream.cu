@@ -3,30 +3,36 @@
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_stream_kernel with its f32
 // body _stream_step (called by stream_class_call, rounds scatter), and
 // stream_class_call's df64 call (:1888-1936, _stream_step_df64 :1634) as
-// native FP64 over the plan's f64 values. One
-// step = s_batch (8, 128) slabs of one 1024-row output window w. Per
-// slab si: entry (k, l) with vidx v reads x[row*128 + (v & 127)],
+// native FP64 over the plan's f64 values. It computes what they compute,
+// but not the way they do: the TPU could route partial sums only with
+// lane and sublane gathers, so its plan carries int8 round planes
+// (rend/rstart/rsrc per round and target) and its kernel takes a prefix
+// along each sublane and boundary differences per round. Here every
+// entry slot carries its own output row instead (StreamChunks.erow, the
+// same routing read off the planes at plan time), and the planes are not
+// read at all.
+//
+// Per slab si: entry (k, l) with vidx v and erow r >= 0 adds
+//   val * x[row*128 + (v & 127)] into y[cw[step]*1024 + r],
 //   row = sb + k*(R/8) + ((v >> 7) & (R/8 - 1)), sb = sbase[si], or
 //   sbase2[si] when bit 13 of v is set (dual-span slabs), or
 //   row = xmap[si*64 + ((v >> 7) & 7)*8 + k] (free-placement slabs);
-// csum = inclusive prefix of val*x along each sublane's 128 lanes (lane 0
-// is a reserved zero); then per round t, target (q, j) of the window adds
-//   csum[src, rend[src, j]] - csum[src, rstart[src, j]], src = rsrc[q, j],
-// from the step's stacked int8 planes (round t: S*8 rend rows, S*8
-// rstart rows, S*8 rsrc rows; slab s's sublane k at row s*8 + k).
+// r = -1 marks lane 0 and padding.
 //
-// Bound: device-memory bytes (4 or 8 B value + 2 B index per entry slot
-// plus 3 B of planes per (round, target)) and gather latency. The TPU ran the
-// prefix on its matrix unit and the rounds as hardware lane/sublane
-// gathers; here a block of 256 threads owns a step: each warp scans one
-// sublane (4 lanes per thread, then a shuffle scan) into shared memory,
-// each thread then owns 4 of the window's 1024 targets and walks the
-// rounds, summing the step's slabs in registers. One atomicAdd per
-// nonzero target per step: the window's other steps run in other blocks.
-// Steps whose slabs are all padding (sactive = 0) return at once. The f64
-// instance keeps the same walk with a double prefix (8 KB of shared csum
-// per slab) and a double shuffle scan, where the TPU ran a compensated
-// double-f32 scan.
+// Bound: device-memory bytes, 8 B per f32 slot (4 B value, 2 B vidx, 2 B
+// erow) and 12 B per f64 slot, read once; x (a few MB) is gathered from
+// L2. Design: a block of 256 threads takes `group` consecutive slabs of
+// one step (grid nsteps * ceil(S / group), so the parallelism does not
+// follow the planner's S); warp k reads sublane k of each slab, 4
+// consecutive lanes per thread as one 16-B value load (two for f64) and
+// 8-B vidx and erow loads. erow is non-decreasing along a sublane's
+// entries, so a segmented inclusive scan keyed on it (in registers, then
+// across the warp by shuffles) sums each run of one row, and the run's
+// last lane adds it into the block's 1024-entry window in shared memory.
+// After the group, one atomicAdd per nonzero window entry into y: the
+// window's other groups and steps run in other blocks. Steps whose slabs
+// are all padding (sactive = 0) return at once; a sublane with no entry
+// skips its value loads and gathers.
 #include <cuda_runtime.h>
 
 namespace {
@@ -34,95 +40,142 @@ namespace {
 constexpr int kSubs = 8;
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
-constexpr int kTargetsPerThread = kSubs * kLanes / kThreads;
+constexpr int kWindow = kSubs * kLanes;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// four int16 as ints (sign-extended) from one 8-B load
+__device__ __forceinline__ void load4(const short* p, int (&v)[4]) {
+  const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+  v[0] = static_cast<short>(a.x & 0xffffu);
+  v[1] = static_cast<short>(a.x >> 16);
+  v[2] = static_cast<short>(a.y & 0xffffu);
+  v[3] = static_cast<short>(a.y >> 16);
+}
 
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
-stream_kernel(const V* __restrict__ val,
-              const short* __restrict__ vidx,
-              const signed char* __restrict__ planes,
+stream_kernel(const V* __restrict__ val, const short* __restrict__ vidx,
+              const short* __restrict__ erow,
               const int* __restrict__ sbase, const int* __restrict__ sbase2,
               const int* __restrict__ xmap, const int* __restrict__ cw,
               const int* __restrict__ sactive,
               const V* __restrict__ x, V* __restrict__ y,
-              int s_batch, int rounds, int span_rows) {
-  const int step = blockIdx.x;
+              int s_batch, int group, int groups_per_step, int span_rows) {
+  const int step = blockIdx.x / groups_per_step;
   if (sactive[step] == 0) return;
-  __shared__ V csum[kSubs][kLanes];
+  const int g0 = (blockIdx.x - step * groups_per_step) * group;
+  const int g1 = min(g0 + group, s_batch);
+  __shared__ V win[kWindow];
   const int tid = threadIdx.x;
-  const int k = tid >> 5;            // sublane this warp scans
+#pragma unroll
+  for (int i = tid; i < kWindow; i += kThreads) win[i] = 0;
+  __syncthreads();
+
+  const int k = tid >> 5;            // sublane this warp reads
   const int lane_id = tid & 31;
   const int l0 = lane_id * 4;        // first of this thread's 4 lanes
   const int rows_per_sub = span_rows / 8;
-  const long long sb8 = (long long)s_batch * kSubs;
-  const signed char* ps =
-      planes + (long long)step * rounds * 3 * sb8 * kLanes;
-  V acc[kTargetsPerThread];
-#pragma unroll
-  for (int q = 0; q < kTargetsPerThread; ++q) acc[q] = 0;
-
-  for (int s = 0; s < s_batch; ++s) {
+  for (int s = g0; s < g1; ++s) {
     const long long si = (long long)step * s_batch + s;
     const long long e0 = (si * kSubs + k) * kLanes + l0;
+    int r[4];
+    load4(erow + e0, r);
+    if (!__any_sync(kFull, max(max(r[0], r[1]), max(r[2], r[3])) >= 0)) {
+      continue;                      // no entry in this sublane
+    }
+    V v[4];
+    int ci[4];
+    load4(val + e0, v);
+    load4(vidx + e0, ci);
+    int sb = 0, sb2 = 0;
+    if (xmap == nullptr) {
+      sb = sbase[si];
+      sb2 = sbase2[si];
+    }
     V c[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const unsigned v = static_cast<unsigned short>(vidx[e0 + u]);
-      const int ch = static_cast<int>((v >> 7) & (rows_per_sub - 1));
-      long long row;
-      if (xmap != nullptr) {
-        row = xmap[si * 64 + ch * kSubs + k];
-      } else {
-        const int sb = ((v >> 13) & 1u) ? sbase2[si] : sbase[si];
-        row = (long long)sb + k * rows_per_sub + ch;
+      c[u] = 0;
+      if (r[u] >= 0) {
+        const unsigned cv = static_cast<unsigned>(ci[u]) & 0xffffu;
+        const int ch = static_cast<int>((cv >> 7) & (rows_per_sub - 1));
+        long long row;
+        if (xmap != nullptr) {
+          row = xmap[si * 64 + ch * kSubs + k];
+        } else {
+          row = (long long)(((cv >> 13) & 1u) ? sb2 : sb) +
+                k * rows_per_sub + ch;
+        }
+        c[u] = v[u] * x[row * kLanes + (cv & 127u)];
       }
-      c[u] = val[e0 + u] * x[row * kLanes + (v & 127u)];
     }
-    c[1] += c[0];
-    c[2] += c[1];
-    c[3] += c[2];
-    V inc = c[3];
+    // segmented inclusive sums within the thread's 4 lanes
+    if (r[1] == r[0]) c[1] += c[0];
+    if (r[2] == r[1]) c[2] += c[1];
+    if (r[3] == r[2]) c[3] += c[2];
+    const int prev_r3 = __shfl_up_sync(kFull, r[3], 1);
+    const int next_r0 = __shfl_down_sync(kFull, r[0], 1);
+    const bool whole = r[0] == r[1] && r[1] == r[2] && r[2] == r[3];
+    // (head, tot): does the thread's last run start in it, and that
+    // run's sum so far; scanned across the warp
+    int head = !(whole && lane_id > 0 && prev_r3 == r[3]);
+    V tot = c[3];
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const V n = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane_id >= off) inc += n;
-    }
-    const V excl = inc - c[3];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) csum[k][l0 + u] = c[u] + excl;
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kTargetsPerThread; ++q) {
-      const int idx = tid + q * kThreads;
-      const int tq = idx >> 7;
-      const int j = idx & (kLanes - 1);
-      for (int t = 0; t < rounds; ++t) {
-        const signed char* pt = ps + (long long)t * 3 * sb8 * kLanes;
-        const int src = pt[(2 * sb8 + s * kSubs + tq) * kLanes + j];
-        const int e = pt[(s * kSubs + src) * kLanes + j];
-        const int st = pt[(sb8 + s * kSubs + src) * kLanes + j];
-        acc[q] += csum[src][e] - csum[src][st];
+      const V nt = __shfl_up_sync(kFull, tot, off);
+      const int nh = __shfl_up_sync(kFull, head, off);
+      if (lane_id >= off) {
+        if (!head) tot += nt;
+        head |= nh;
       }
     }
-    __syncthreads();
-  }
-  V* yw = y + (long long)cw[step] * kSubs * kLanes;
+    // the run the previous thread ended in, if it goes on here
+    const V cin = __shfl_up_sync(kFull, tot, 1);
+    const bool carry = lane_id > 0 && prev_r3 == r[0];
+    bool lead = true;
 #pragma unroll
-  for (int q = 0; q < kTargetsPerThread; ++q) {
-    if (acc[q] != 0) atomicAdd(yw + tid + q * kThreads, acc[q]);
+    for (int u = 0; u < 4; ++u) {
+      lead = lead && r[u] == r[0];
+      if (carry && lead) c[u] += cin;
+      const bool end = u < 3 ? r[u] != r[u + 1]
+                             : (lane_id == 31 || next_r0 != r[3]);
+      if (end && r[u] >= 0) atomicAdd(&win[r[u]], c[u]);
+    }
+  }
+  __syncthreads();
+  V* yw = y + (long long)cw[step] * kWindow;
+#pragma unroll
+  for (int i = tid; i < kWindow; i += kThreads) {
+    const V a = win[i];
+    if (a != 0) atomicAdd(yw + i, a);
   }
 }
 
 template <typename V>
-int launch(const V* val, const short* vidx, const signed char* planes,
+int launch(const V* val, const short* vidx, const short* erow,
            const int* sbase, const int* sbase2, const int* xmap,
            const int* cw, const int* sactive, const V* x, V* y, int nsteps,
-           int s_batch, int rounds, int span_rows, void* stream) {
+           int s_batch, int span_rows, int group, void* stream) {
+  const int gps = group > 0 ? (s_batch + group - 1) / group : 0;
+  if (gps < 1 || (long long)nsteps * gps > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nsteps > 0) {
-    stream_kernel<V><<<nsteps, kThreads, 0,
+    stream_kernel<V><<<nsteps * gps, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        val, vidx, planes, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
-        rounds, span_rows);
+        val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
+        group, gps, span_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -130,22 +183,22 @@ int launch(const V* val, const short* vidx, const signed char* planes,
 }  // namespace
 
 extern "C" int tsp_stream(const float* val, const short* vidx,
-                          const signed char* planes, const int* sbase,
+                          const short* erow, const int* sbase,
                           const int* sbase2, const int* xmap, const int* cw,
                           const int* sactive, const float* x, float* y,
-                          int nsteps, int s_batch, int rounds,
-                          int span_rows, void* stream) {
-  return launch(val, vidx, planes, sbase, sbase2, xmap, cw, sactive, x, y,
-                nsteps, s_batch, rounds, span_rows, stream);
+                          int nsteps, int s_batch, int span_rows, int group,
+                          void* stream) {
+  return launch(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
+                nsteps, s_batch, span_rows, group, stream);
 }
 
 extern "C" int tsp_stream_f64(const double* val, const short* vidx,
-                              const signed char* planes, const int* sbase,
+                              const short* erow, const int* sbase,
                               const int* sbase2, const int* xmap,
                               const int* cw, const int* sactive,
                               const double* x, double* y, int nsteps,
-                              int s_batch, int rounds, int span_rows,
+                              int s_batch, int span_rows, int group,
                               void* stream) {
-  return launch(val, vidx, planes, sbase, sbase2, xmap, cw, sactive, x, y,
-                nsteps, s_batch, rounds, span_rows, stream);
+  return launch(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
+                nsteps, s_batch, span_rows, group, stream);
 }

@@ -38,12 +38,16 @@ from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         microbench_gather_reference,
                         microbench_scatter_reference, sparse_reference,
                         sparse_spmm_reference, stream2_reference,
-                        stream_reference)
+                        stream_rows_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
 # reference fuses (tilespmv_tpu/ops/spmv.py:84)
 SPMM_K = range(2, 17)
+# slabs per block of the SpMV stream kernel (stream.cu): a block takes up
+# to this many consecutive slabs of one step. 2 was the fastest of
+# {1, 2, 4, S} on the flagship stream classes of both dtypes (PERF.md)
+STREAM_GROUP = 2
 LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
             "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0,
             "band_f64": 0, "dense_f64": 0, "stream_f64": 0,
@@ -195,11 +199,11 @@ def _check_stream(st, dev, dtype=torch.float32) -> int:
     return nsteps
 
 
-def _stream_args(st, x, y, nsteps) -> tuple:
-    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
-    return (_p(st.val), _p(st.vidx), _p(st.planes), _p(st.sbase), _p(sb2),
-            _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y),
-            nsteps, st.s_batch, st.rounds, st.span_rows)
+def stream_blocks(st, group: int = STREAM_GROUP) -> int:
+    """Blocks of one stream.cu launch on class `st`: ceil(S / group) per
+    step, `group` clamped to [1, S]."""
+    g = min(max(1, group), st.s_batch)
+    return st.cw.shape[0] * -(-st.s_batch // g)
 
 
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -247,17 +251,24 @@ def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def stream_spmv(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Stream class: entry slabs, lane prefix + round-plane scatter (f32
-    or f64)."""
+def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
+                group: int = STREAM_GROUP) -> torch.Tensor:
+    """Stream class: entry slabs, each entry added into its own output
+    row `erow` (f32 or f64); a block takes `group` slabs of a step."""
     dt = _value_dtype(st.val)
     _check_xy(x, y, dt)
     nsteps = _check_stream(st, y.device, dt)
+    _check("stream.erow", st.erow, torch.int16, tuple(st.val.shape),
+           y.device)
     if not _use_kernel(y):
-        return stream_reference(st, x, y)
+        return stream_rows_reference(st, x, y)
     name = "stream" + _SUFFIX[dt]
+    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
     err = getattr(build.load(), "tsp_" + name)(
-        *_stream_args(st, x, y, nsteps), _stream())
+        _p(st.val), _p(st.vidx), _p(st.erow), _p(st.sbase), _p(sb2),
+        _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
+        st.s_batch, st.span_rows, min(max(1, group), st.s_batch),
+        _stream())
     _launched(name, err)
     return y
 
@@ -312,8 +323,11 @@ def stream_spmm2(st, x: torch.Tensor, y: torch.Tensor,
     nsteps = _check_stream(st, y.device)
     if not _use_kernel(y):
         return stream2_reference(st, x, y, r)
-    err = build.load().tsp_stream2(*_stream_args(st, x, y, nsteps), k, r,
-                                   _stream())
+    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
+    err = build.load().tsp_stream2(
+        _p(st.val), _p(st.vidx), _p(st.planes), _p(st.sbase), _p(sb2),
+        _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
+        st.s_batch, st.rounds, st.span_rows, k, r, _stream())
     _launched("stream2", err)
     return y
 

@@ -26,14 +26,23 @@ Global indices, shared with the kernels:
   x[row*128 + (v & 127)] with row = sbase + k*(R/8) + ((v >> 7) & (R/8-1))
   (sbase2 when bit 13 of v is set; xmap[si*64 + chunk*8 + k] for
   free-placement classes), and target (q, j) of window w is
-  y[w*1024 + q*128 + j].
+  y[w*1024 + q*128 + j]; the entry's own target is q*128 + j = its
+  `erow` (stream_plan.entry_rows).
+
+`class_coo` lists a class's nonzeros as global (row, col, value) by the
+same arithmetic: what the class computes, whatever layout holds it.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
-from .lane_plan import PANEL_TC, ROW_WINDOW, LanePlan, map_arrays
-from .stream_plan import LANES, RW_ROWS, SPAN_ROWS, SUBS
+from ..plan import ResidualEngine
+from .lane_plan import (PANEL_TC, ROW_WINDOW, BandChunks, DenseChunks,
+                        LanePlan, SparseChunks, map_arrays)
+from .stream_plan import LANES, RW_ROWS, SPAN_ROWS, SUBS, StreamChunks
 
 _B = 16
 # slab-RHS pairs per pass of stream_reference (bounds its gather
@@ -54,12 +63,19 @@ def _take(a: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
     return a.gather(dim, idx)
 
 
+def _x_cols(pb: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
+    """(rows, 16, T) x indices of the lanes at `loc` (rows, T) given each
+    row's (rows, K) panel ids: x block tc = panel*256 + (loc & 255), then
+    its 16 columns."""
+    tc = pb.gather(1, loc >> 8) * PANEL_TC + (loc & (PANEL_TC - 1))
+    j = torch.arange(_B, device=pb.device)
+    return tc[:, None, :] * _B + j[None, :, None]
+
+
 def _x_blocks(pb: torch.Tensor, loc: torch.Tensor, x: torch.Tensor):
     """(rows, 16, T[, k]) x blocks of the lanes at `loc` (rows, T) given
     each row's (rows, K) panel ids."""
-    tc = pb.gather(1, loc >> 8) * PANEL_TC + (loc & (PANEL_TC - 1))
-    j = torch.arange(_B, device=x.device)
-    return x[tc[:, None, :] * _B + j[None, :, None]]
+    return x[_x_cols(pb, loc)]
 
 
 def _route(yc, cw_of_chunk, lrow, valid, y):
@@ -123,35 +139,43 @@ def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return _route(yc, s.cw.long()[step], s.meta[:, 1].long(), xloc >= 0, y)
 
 
+def _stream_cols(st, sl: slice) -> torch.Tensor:
+    """(slabs, 8, 128) x index of every entry slot of the slabs `sl`."""
+    span = st.span_rows
+    v = st.vidx[sl].int() & 0xFFFF
+    nsl = v.shape[0]
+    k = torch.arange(SUBS, device=v.device)[None, :, None]
+    ch = (v >> 7) & (span // 8 - 1)
+    if st.xmap is not None:
+        xrow = st.xmap.view(-1, SPAN_ROWS)[sl].long().gather(
+            1, (ch * SUBS + k).view(nsl, -1).long()).view_as(v)
+    else:
+        sb = st.sbase[sl].long()[:, None, None]
+        if st.sbase2 is not None:
+            sb = torch.where(((v >> 13) & 1) == 1,
+                             st.sbase2[sl].long()[:, None, None], sb)
+        xrow = sb + k * (span // 8) + ch
+    return xrow * LANES + (v & (LANES - 1))
+
+
 def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Stream class: per slab, contrib = val * x[entry column], an
-    inclusive prefix along lanes, then per round t target (q, j) adds
-    csum[src, rend[src, j]] - csum[src, rstart[src, j]], src =
-    rsrc[q, j]."""
-    S, R, span = st.s_batch, st.rounds, st.span_rows
+    """Stream class in the planes' form (the Pallas kernel's): per slab,
+    contrib = val * x[entry column], an inclusive prefix along lanes,
+    then per round t target (q, j) adds csum[src, rend[src, j]] -
+    csum[src, rstart[src, j]], src = rsrc[q, j]. stream2.cu's plain
+    version; stream.cu's is stream_rows_reference."""
+    S, R = st.s_batch, st.rounds
     dev = y.device
     rhs = x.shape[1:]
     nsteps = st.cw.shape[0]
     planes = st.planes.view(nsteps, R, 3, S, SUBS, LANES)
-    k = torch.arange(SUBS, device=dev)[None, :, None]
     qj = torch.arange(SUBS * LANES, device=dev).view(1, SUBS, LANES)
     per = max(1, _STREAM_SLABS_PER_PASS // (S * x[0].numel()))
     for s0 in range(0, nsteps, per):
         s1 = min(nsteps, s0 + per)
         sl = slice(s0 * S, s1 * S)
         nsl = (s1 - s0) * S
-        v = st.vidx[sl].int() & 0xFFFF
-        ch = (v >> 7) & (span // 8 - 1)
-        if st.xmap is not None:
-            xrow = st.xmap.view(-1, SPAN_ROWS)[sl].long().gather(
-                1, (ch * SUBS + k).view(nsl, -1).long()).view_as(v)
-        else:
-            sb = st.sbase[sl].long()[:, None, None]
-            if st.sbase2 is not None:
-                sb = torch.where(((v >> 13) & 1) == 1,
-                                 st.sbase2[sl].long()[:, None, None], sb)
-            xrow = sb + k * (span // 8) + ch
-        contrib = _rhs(st.val[sl], x) * x[xrow * LANES + (v & (LANES - 1))]
+        contrib = _rhs(st.val[sl], x) * x[_stream_cols(st, sl)]
         csum = torch.cumsum(contrib, dim=2)                # (nsl, 8, 128)
         p = planes[s0:s1].permute(0, 3, 1, 2, 4, 5).reshape(
             nsl, R, 3, SUBS, LANES).long()
@@ -162,6 +186,18 @@ def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         rows = win[:, None, None] * RW_ROWS + qj
         y.index_add_(0, rows.reshape(-1), yv.reshape((-1,) + rhs))
     return y
+
+
+def stream_rows_reference(st, x: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+    """Stream class by per-entry rows (stream.cu's plain version): every
+    slot with erow >= 0 adds val * x[entry column] into
+    y[cw*1024 + erow]."""
+    hit = st.erow >= 0
+    win = st.cw.long().repeat_interleave(st.s_batch)
+    rows = win[:, None, None] * RW_ROWS + st.erow.long()
+    cols = _stream_cols(st, slice(0, st.val.shape[0]))[hit]
+    return y.index_add_(0, rows[hit], _rhs(st.val[hit], x) * x[cols])
 
 
 # The class versions above take k right-hand sides as well: they are the
@@ -178,6 +214,95 @@ def stream2_reference(st, x: torch.Tensor, y: torch.Tensor,
     stream2.cu's plain version."""
     stream_reference(st, x[:, r:r + 2], y[:, r:r + 2])
     return y
+
+
+def _band_coo(bd):
+    nch, C = bd.val.shape[0], bd.val.shape[1]
+    T = ROW_WINDOW
+    pb = bd.pb.view(nch, bd.k_panels).long()
+    bloc = bd.bloc.view(nch, T).long()
+    i = torch.arange(_B)[None, :, None]
+    rows = (bd.cw.long()[:, None, None] * T
+            + torch.arange(T)[None, None, :]) * _B + i    # (nch, 16i, T)
+    out = []
+    for cb in range(C):
+        cols = _x_cols(pb, bloc + cb)                     # (nch, 16j, T)
+        out.append((rows[:, None].expand(bd.val[:, cb].shape),
+                    cols[:, :, None].expand(bd.val[:, cb].shape),
+                    bd.val[:, cb]))
+    return [torch.cat([o[f].reshape(-1) for o in out]) for f in range(3)]
+
+
+def _dense_coo(d):
+    nch = d.val.shape[0]
+    step = torch.arange(nch) // d.c_batch
+    xloc, lrow = d.meta[:, 0].long(), d.meta[:, 1].long()
+    pb = d.pb.view(-1, d.k_panels).long()[step]
+    cols = _x_cols(pb, xloc.clamp(min=0))                 # (nch, 16j, T)
+    rows = ((d.cw.long()[step][:, None] * ROW_WINDOW + lrow) * _B)[
+        :, None, :] + torch.arange(_B)[None, :, None]     # (nch, 16i, T)
+    shape = d.val.shape                                   # (nch, j, i, T)
+    keep = (xloc >= 0)[:, None, None, :].expand(shape)
+    return (rows[:, None].expand(shape)[keep],
+            cols[:, :, None].expand(shape)[keep], d.val[keep])
+
+
+def _sparse_coo(s):
+    nch, W, T = s.val.shape
+    step = torch.arange(nch) // s.c_batch
+    xloc, lrow = s.meta[:, 0].long(), s.meta[:, 1].long()
+    pb = s.pb.view(-1, s.k_panels).long()[step]
+    tc = _x_cols(pb, xloc.clamp(min=0))[:, 0]             # (nch, T)
+    slot = torch.arange(W)
+    words = s.meta[:, 2 + slot // 8].long()               # (nch, W, T)
+    cols = tc[:, None, :] + ((words >> ((slot % 8) * 4)[None, :, None])
+                             & 15)
+    r = torch.arange(_B)
+    rwords = s.meta[:, 2 + W // 8 + r // 4].long()        # (nch, 16, T)
+    rend = (rwords >> ((r % 4) * 8)[None, :, None]) & 255
+    # slot t of a lane belongs to the first row r with rend[r] >= t
+    ge = rend[:, :, None, :] >= slot[None, None, :, None]  # (nch, r, W, T)
+    rin = ge.int().argmax(dim=1)                          # (nch, W, T)
+    rows = ((s.cw.long()[step][:, None] * ROW_WINDOW + lrow) * _B)[
+        :, None, :] + rin
+    keep = (xloc >= 0)[:, None, :] & ge.any(dim=1)
+    return rows[keep], cols[keep], s.val[keep]
+
+
+def _stream_coo(st):
+    hit = st.erow >= 0
+    win = st.cw.long().repeat_interleave(st.s_batch)
+    rows = win[:, None, None] * RW_ROWS + st.erow.long()
+    cols = _stream_cols(st, slice(0, st.val.shape[0]))
+    return rows[hit], cols[hit], st.val[hit]
+
+
+def class_coo(cls) -> tuple:
+    """The nonzeros of one plan class (BandChunks, DenseChunks,
+    SparseChunks, StreamChunks or ResidualEngine; arrays as tensors on
+    any device, or NumPy) as NumPy (row, col, val): global y row, global
+    x column and value, by the plain versions' index arithmetic (stream
+    classes by `erow`). Padding (zero values, masked lanes) is left out,
+    so a plan's classes together list each entry of its matrix once."""
+    cls = dataclasses.replace(cls, **{
+        f.name: torch.as_tensor(getattr(cls, f.name)).cpu()
+        for f in dataclasses.fields(cls)
+        if f.type == "Any" and getattr(cls, f.name) is not None})
+    if isinstance(cls, BandChunks):
+        row, col, val = _band_coo(cls)
+    elif isinstance(cls, DenseChunks):
+        row, col, val = _dense_coo(cls)
+    elif isinstance(cls, SparseChunks):
+        row, col, val = _sparse_coo(cls)
+    elif isinstance(cls, StreamChunks):
+        row, col, val = _stream_coo(cls)
+    elif isinstance(cls, ResidualEngine):
+        row, col, val = cls.row.long(), cls.col.long(), cls.val
+    else:
+        raise TypeError(f"class_coo: not a plan class: {type(cls)}")
+    nz = val != 0
+    return (row[nz].numpy().astype(np.int64),
+            col[nz].numpy().astype(np.int64), val[nz].numpy())
 
 
 def to_torch(plan: LanePlan, device=None) -> LanePlan:
@@ -274,7 +399,7 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
 def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with the plain PyTorch class versions (any device)."""
     return assemble(plan, x, band_reference, dense_reference,
-                    sparse_reference, stream_reference)
+                    sparse_reference, stream_rows_reference)
 
 
 def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -282,7 +407,7 @@ def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     device)."""
     return assemble_mm(plan, x, band_spmm_reference, dense_spmm_reference,
                        sparse_spmm_reference, stream2_reference,
-                       stream_reference)
+                       stream_rows_reference)
 
 
 # The microbenchmarks' shapes (scripts/microbench_{gather,scatter}.py of

@@ -18,6 +18,9 @@ it, as NumPy arrays.
   src = rsrc[q, j]. Runs are split into rounds by the proper edge
   coloring (src_sublane + target_sublane) % 8 of each (slab, lane)
   cell, so a round never has two runs on one target;
+* `erow` (this package only, `entry_rows`) holds the same routing per
+  entry slot: its output row in the window, which the H100 stream
+  kernel reads instead of the planes;
 * free-placement classes (`xmap`) drop the span alignment: each of a
   slab's 8 sublane slots maps to an arbitrary 1024-value x block of
   the window, x row = xmap[slab*64 + chunk*8 + sublane].
@@ -48,6 +51,7 @@ XBLOCK_ROWS = 8    # x2d128 rows per sublane's x window (1024 values)
 SPAN_ROWS = 64     # default x2d128 rows per slab superspan (8 windows)
 SPAN_CHOICES = (64, 128, 256, 512)
 MAX_SPAN_ROWS = SPAN_CHOICES[-1]  # x padding slack past the end
+EROW_PAD = -1      # StreamChunks.erow of a slot that holds no entry
 
 
 def f64_plan_value(v: np.ndarray) -> np.ndarray:
@@ -98,6 +102,10 @@ class StreamChunks:
     sactive: Any  # (nsteps,) int32: 0 = every slab in the step is empty
     sbase2: Any = None  # (nslabs,) int32, dual-span classes only
     xmap: Any = None    # (nslabs*64,) int32, free-placement classes only
+    # (nslabs, 8, 128) int16: each entry slot's output row in its step's
+    # window (q*128 + j), EROW_PAD on padding slots and lane 0; derived
+    # from the planes by entry_rows (the reference has no such field)
+    erow: Any = None
 
     s_batch: int = 4
     rounds_: int = ROUNDS
@@ -353,6 +361,44 @@ def _runs_planes(slab_of: np.ndarray, sub_of: np.ndarray,
     return planes, rounds
 
 
+def entry_rows(st: StreamChunks) -> np.ndarray:
+    """Each entry slot's output row in its step's 1024-row window, from
+    the stacked round planes: per slab and round t, target (q, j) routes
+    the run of lanes (rstart, rend] of sublane src = rsrc[q, j], and those
+    lanes get row q*128 + j. (nslabs, 8, 128) int16, EROW_PAD where no
+    run lies (lane 0, padding). Rows are non-decreasing along each
+    sublane's entries, since the builders sort them so."""
+    S, R = st.s_batch, st.rounds
+    nsteps = st.cw.shape[0]
+    nsl = nsteps * S
+    p = np.asarray(st.planes).reshape(nsteps, R, 3, S, SUBS, LANES)
+    runs = []                        # (slab, src, start, end, row) per t
+    for t in range(R):
+        rend, rstart, rsrc = (p[:, t, c].reshape(nsl, SUBS, LANES)
+                              for c in range(3))
+        rsrc = rsrc.astype(np.intp)
+        e = np.take_along_axis(rend, rsrc, axis=1)
+        s = np.take_along_axis(rstart, rsrc, axis=1)
+        hit = e > s
+        sl, q, j = np.nonzero(hit)
+        runs.append((sl, rsrc[hit], s[hit].astype(np.int64),
+                     e[hit].astype(np.int64), q * LANES + j))
+    sl, src, s, e, row = (np.concatenate(a) for a in zip(*runs))
+    n = e - s
+    first = np.repeat(np.cumsum(n) - n, n)
+    lane = np.repeat(s + 1, n) + np.arange(int(n.sum())) - first
+    erow = np.full((nsl, SUBS, LANES), EROW_PAD, np.int16)
+    erow[np.repeat(sl, n), np.repeat(src, n), lane] = np.repeat(row, n)
+    return erow
+
+
+def with_entry_rows(st: Optional[StreamChunks]) -> Optional[StreamChunks]:
+    """`st` (stacked planes) with its `erow` field; None for None."""
+    if st is None:
+        return None
+    return dataclasses.replace(st, erow=entry_rows(st))
+
+
 def _rank_within(key: np.ndarray) -> np.ndarray:
     """0-based rank of each element within its equal-key group."""
     n = key.shape[0]
@@ -372,9 +418,9 @@ def split_stream_chunks(st: StreamChunks):
     two slabs-per-step rates beat one. The two classes' window sets are
     DISJOINT. Returns (base, heavy | None) with stacked planes."""
     def _as_built(sc):
-        return dataclasses.replace(
+        return with_entry_rows(dataclasses.replace(
             sc, planes=stack_step_planes(sc.planes, sc.s_batch,
-                                         sc.rounds_))
+                                         sc.rounds_)))
 
     S0, R = st.s_batch, st.rounds_
     cw = st.cw
@@ -431,11 +477,11 @@ def split_stream_chunks(st: StreamChunks):
             # free placement: span base is slab * SPAN_ROWS in the
             # class's own x copy
             sb = np.arange(tot, dtype=np.int32) * SPAN_ROWS
-        return StreamChunks(
+        return with_entry_rows(StreamChunks(
             val=v, vidx=vi, planes=stack_step_planes(pr, s, R),
             sbase=sb, cw=cwc, cfirst=cf, sactive=sact, sbase2=sb2,
             xmap=xm.reshape(-1) if xm is not None else None,
-            s_batch=s, rounds_=R, span_rows=st.span_rows, dual=st.dual)
+            s_batch=s, rounds_=R, span_rows=st.span_rows, dual=st.dual))
 
     return build(~heavy, s1), (build(heavy, s2) if s2 is not None
                                else None)
@@ -773,14 +819,14 @@ def build_stream_classes(g_row: np.ndarray, g_col: np.ndarray,
         g_row, g_col, val, m, span_rows=span_rows, dual=dual,
         split_fn=pick_stream_split, want_lo=f64)
     if out is not None:
-        classes = [StreamChunks(
+        classes = [with_entry_rows(StreamChunks(
             val=(cd["val"].astype(np.float64) + cd["val_lo"] if f64
                  else cd["val"]),
             vidx=cd["vidx"], planes=cd["planes"],
             sbase=cd["sbase"], cw=cd["cw"], cfirst=cd["cfirst"],
             sactive=cd["sactive"], sbase2=cd.get("sbase2"),
             s_batch=cd["s_batch"], rounds_=cd["rounds"],
-            span_rows=span_rows, dual=dual) for cd in out]
+            span_rows=span_rows, dual=dual)) for cd in out]
         return classes[0], classes[1] if len(classes) > 1 else None
     return split_stream_chunks(build_stream_chunks(
         g_row, g_col, val, m, span_rows=span_rows, dual=dual, stack=False,
@@ -827,7 +873,7 @@ def _finish_stream(val_arr, vidx_arr, planes, sbase, win_arr, s_batch,
     cfirst = np.ones(cw.shape[0], np.int32)
     cfirst[1:] = (win_step[1:] != win_step[:-1]).astype(np.int32)
     sactive = (load.reshape(-1, s_batch).sum(axis=1) > 0).astype(np.int32)
-    return StreamChunks(
+    st = StreamChunks(
         val=val_arr, vidx=vidx_arr, planes=planes,
         sbase=sbase.astype(np.int32), cw=cw, cfirst=cfirst,
         sactive=sactive,
@@ -836,3 +882,4 @@ def _finish_stream(val_arr, vidx_arr, planes, sbase, win_arr, s_batch,
         xmap=(xmap_arr.reshape(-1).astype(np.int32)
               if xmap_arr is not None else None),
         s_batch=s_batch, rounds_=rounds, span_rows=span_rows, dual=dual)
+    return with_entry_rows(st) if stack else st

@@ -6,10 +6,11 @@ as the reference's f64 plan with native-FP64 values) and computes
 y = A @ x (`forward`) and Y = A @ X for X (n, k) (`matmat`; `op @ x`
 takes either). It is an
 `nn.Module` whose plan arrays are registered buffers, so `.to(device)`
-moves the plan. On a CUDA device it runs the hand-written class kernels
-(ops/cuda/kernels.py::spmv_cuda / spmm_cuda); on the CPU it runs their
-plain PyTorch versions (ops/cuda/reference.py::spmv_reference /
-spmm_reference).
+moves the plan. It is built on the card unless the caller asks for
+another device: on a CUDA device it runs the hand-written class kernels
+(ops/cuda/kernels.py::spmv_cuda / spmm_cuda); built with
+`device="cpu"` it runs their plain PyTorch versions
+(ops/cuda/reference.py::spmv_reference / spmm_reference).
 """
 from __future__ import annotations
 
@@ -30,11 +31,12 @@ from .cuda.reference import spmm_reference, spmv_reference
 class TileSpMV(nn.Module):
     """Tiled f32 or f64 SpMV / SpMM operator.
 
-    >>> op = TileSpMV(csr, device="cuda")   # convert + plan + upload
+    >>> op = TileSpMV(csr)                  # convert + plan + upload
     >>> y = op(x)                           # y = A @ x on op's device
     >>> Y = op.matmat(X)                    # Y = A @ X, X (n, k)
     >>> y, Y = op @ x, op @ X
-    >>> op64 = TileSpMV(csr, device="cuda", dtype=torch.float64)
+    >>> op64 = TileSpMV(csr, dtype=torch.float64)
+    >>> op_cpu = TileSpMV(csr, device="cpu")  # the plain versions
     """
 
     DTYPES = (torch.float32, torch.float64)
@@ -44,12 +46,21 @@ class TileSpMV(nn.Module):
                  dtype: torch.dtype = torch.float32):
         """`a`: a CSRMatrix (converted with the default TileConfig) or
         a TileMatrix from tile_create with any config of tile size 16.
+        `device`: where the plan lives and the SpMV runs; None is the
+        card ("cuda"), and raises RuntimeError where there is none.
         `dtype`: the compute dtype, torch.float32 or torch.float64 (the
         reference's `compute_dtype`); x is cast to it and y has it."""
         super().__init__()
         if dtype not in self.DTYPES:
             raise ValueError(f"dtype {dtype}: TileSpMV computes in "
                              f"{' or '.join(map(str, self.DTYPES))}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TileSpMV runs on the CUDA card by default and finds "
+                    "none; pass device=\"cpu\" to run the kernels' plain "
+                    "PyTorch versions on the CPU")
+            device = "cuda"
         self.dtype = dtype
         if not isinstance(a, TileMatrix):
             a = tile_create(a)
@@ -65,8 +76,7 @@ class TileSpMV(nn.Module):
         map_arrays(plan, register)
         # the plan with each array replaced by its buffer's name
         self._skeleton: LanePlan = map_arrays(plan, lambda n, _: n)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     @property
     def shape(self) -> tuple[int, int]:

@@ -5,7 +5,9 @@ reference's per-format cost instrumentation (`DEBUG_FORMATCOST` /
 `formatprofile`, reference main.cu:12 and tilespmv_cuda.h:102-110,
 525-533): `profile_engines` times each execution-plan class on its own,
 so the cost of every class is visible, and `trace_context` records a
-`torch.profiler` trace for deep dives.
+`torch.profiler` trace for deep dives. `csr_bound` and `class_bound`
+give the least time the card could take for a class's work, the
+yardstick its kernel's time is read against.
 """
 from __future__ import annotations
 
@@ -87,6 +89,76 @@ def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
         ta = one(n1)
         tb = one(n2)
         ts.append((tb - ta) / (n2 - n1))
+    return float(np.median(ts))
+
+
+# H100 SXM peaks at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s,
+# and FLOP/s outside the tensor cores by value size (FP32, FP64)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+
+
+def csr_bound(nnz: int, rows: int, cols: int, vbytes: int,
+              k: int = 1) -> dict:
+    """Least time of Y = A @ X over k right-hand sides for A in CSR with
+    `nnz` entries over `rows` distinct rows and `cols` distinct columns,
+    values of `vbytes` bytes: each byte read or written once, bytes =
+    nnz*(vbytes + 4) + 4*(rows + 1) + vbytes*(cols + rows)*k (values and
+    int32 columns, row pointer, x and y), flops = 2*nnz*k; roofline's
+    dict."""
+    return roofline(
+        nnz * (vbytes + 4) + 4 * (rows + 1) + vbytes * (cols + rows) * k,
+        2 * nnz * k, vbytes)
+
+
+def roofline(nbytes: float, flops: float, vbytes: int) -> dict:
+    """{"bytes", "flops", "bound_ms", "bound_by"}: the larger of nbytes
+    over HBM_BYTES_PER_S and flops over PEAK_FLOPS[vbytes], in ms, and
+    which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[vbytes] * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def class_bound(classes, k: int = 1) -> dict:
+    """csr_bound summed over plan classes of one value dtype
+    (reference.class_coo's nonzeros; each class its own CSR, as each is
+    its own launch)."""
+    parts, vbytes = [], 4
+    for cls in classes:
+        row, col, val = reference.class_coo(cls)
+        vbytes = val.dtype.itemsize
+        parts.append(csr_bound(val.size, np.unique(row).size,
+                               np.unique(col).size, vbytes, k))
+    return roofline(sum(p["bytes"] for p in parts),
+                  sum(p["flops"] for p in parts), vbytes)
+
+
+def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """Device time of one fn() on the card, in ms: `iters` calls
+    captured in one CUDA graph (after a warm-up call on a side stream),
+    the median over `reps` of the CUDA-event time of a replay, over
+    `iters`. It leaves out the host's time per call (checks, launch
+    calls), which sets the pace of a loop of kernels shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b) / iters)
     return float(np.median(ts))
 
 
