@@ -32,7 +32,14 @@ Phases, each fatal on failure:
    the library call: one cuSPARSE product per class
    (`torch.sparse_csr_tensor` of its nonzeros, reference.class_coo;
    `torch.mv`, or `@` for SpMM), held to the plain version within the
-   kernel's bound and timed the same way;
+   kernel's bound and timed the same way. The dense kernel's row also
+   prints its launch (kernels.dense_launch: blocks, threads, active
+   tiles / lane slots, the bytes it reads and those bytes at 3.35 TB/s,
+   the layout floor, all counted from the plan, so printed and kept out
+   of the JSON line) and the A/B of its arms (scripts/dense_probes:
+   dense.cu against copies of it built without the list of active lane
+   groups or without the column mask), each arm held to the plain
+   version, the arms' times in the JSON line as "ab";
 5. end to end — median ms and GFLOPS (2*nnz/t) per matrix for the
    kernel path and for the plain path;
 6. .mtx — tests/fixtures/bcsstk_style_sym.mtx through load_mtx and
@@ -58,9 +65,10 @@ Phases, each fatal on failure:
    column); each f64 kernel against its plain version on every class of
    its kind (band_f64 on banded_large, dense_f64 on mixed_large,
    stream_f64 on powerlaw_large and mixed_large's split pair) within
-   1e-12 * max(1, max|plain|), with median times; end to end per matrix
-   f64 ms and GFLOPS for the kernel and plain paths and the ratio to
-   phase 5's f32 ms;
+   1e-12 * max(1, max|plain|), with median times and, as in phase 4,
+   the bound, the library call and dense_f64's launch and A/B; end to
+   end per matrix f64 ms and GFLOPS for the kernel and plain paths and
+   the ratio to phase 5's f32 ms;
 9. measurement — with the launch counters reset just before: the two
    microbenchmarks (tilespmv_tpu_torch/scripts/microbench_{gather,
    scatter}.py's `timeit`: every R and every arm, ns per step over 4 and
@@ -237,9 +245,12 @@ def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
 
 
 # plan fields a kernel does not read: the SpMV stream kernel reads erow
-# and not the round planes, stream2.cu the planes and not erow
+# and not the round planes, stream2.cu the planes and not erow;
+# dense_spmm.cu neither of dense.cu's derived arrays
 _UNREAD = {"stream": ("planes", "cfirst"), "stream_f64": ("planes", "cfirst"),
-           "stream2": ("erow", "cfirst")}
+           "stream2": ("erow", "cfirst"), "dense": ("cfirst",),
+           "dense_f64": ("cfirst",),
+           "dense_spmm": ("cmask", "groups", "cfirst")}
 # the stream kernel's slabs per block tried in phases 4 and 8 (S: all of
 # a step's slabs, the wrapper clamping the group to S)
 STREAM_GROUPS = {"1": 1, "2": 2, "4": 4, "S": 1 << 30}
@@ -296,7 +307,7 @@ def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
                 "mv" if k is None else "mm"),
             share_of_bound=r0["bound_ms"] / r0["ms"],
             kernel_over_library=r0["ms"] / r0["library_ms"]))
-        for f in ("ms_by_group", "by_class"):
+        for f in ("ms_by_group", "by_class", "ab"):
             if f in r0:
                 results[-1][f] = r0[f]
         if len(runs) > 1:
@@ -417,6 +428,9 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
         out["by_class"] = [stream_class_line(
             card, kname, mname, i, c, mats[i], xp, yk, wrap[kname])
             for i, c in enumerate(classes)]
+    if kname in ("dense", "dense_f64"):
+        out["ab"] = dense_lines(
+            card, kname, mname, classes[0], xp, ylen, ms, bnd, lib_ms)
     mb = sum(class_bytes(c, kname) for c in classes) / 1e6
     log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
         f"{mb:.1f} MB of plan read, launches +{delta}"
@@ -446,6 +460,40 @@ def stream_class_line(card, kname, mname, i, cls, mat, xp, y, wrap) -> dict:
         f"library {lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f} "
         f"[{card}]")
     return dict(ms=ms, bound_ms=bnd["bound_ms"], library_ms=lib_ms)
+
+
+def dense_lines(card, kname, mname, d, xp, ylen, ms, bnd, lib_ms) -> dict:
+    """The dense kernel's launch on class `d` (kernels.dense_launch:
+    blocks, threads, active tiles of the lane slots, the bytes it reads
+    and their time at 3.35 TB/s, the layout floor, all counted from the
+    plan) beside its time, bound and cuSPARSE time, and the A/B of its
+    arms (scripts/dense_probes.run_arms: the group list against every
+    lane group, the column mask against every column), printed; returns
+    the arms' measured results."""
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    from tilespmv_tpu_torch.scripts import dense_probes
+    from tilespmv_tpu_torch.utils.profiling import HBM_BYTES_PER_S
+    ln = kernels.dense_launch(d)
+    floor_ms = ln["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"kernel {kname} on {mname} launch: {ln['blocks']} blocks, "
+        f"{ln['threads']} threads, active tiles {ln['active']} / lane "
+        f"slots {ln['slots']} ({ln['active'] / ln['slots']:.3f}); reads "
+        f"{ln['bytes'] / 1e6:.3f} MB (values {ln['val_bytes'] / 1e6:.3f} "
+        f"MB in 32-B sectors), layout floor {floor_ms:.4f} ms; kernel "
+        f"{ms:.4f} ms ({floor_ms / ms:.3f} of the floor), bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, share "
+        f"{bnd['bound_ms'] / ms:.3f}, cuSPARSE {lib_ms:.4f} ms, kernel / "
+        f"library {ms / lib_ms:.2f} [{card}]")
+    every = kernels.dense_launch(d, table=False)
+    ab = dense_probes.run_arms(d, xp, ylen)
+    main = ab[dense_probes.ARMS[0]]["ms"]
+    for arm, r in ab.items():
+        blocks = (every if arm.startswith("all") else ln)["blocks"]
+        log(f"A/B {kname} on {mname} arm {arm} ({blocks} blocks): median "
+            f"{r['ms']:.4f} ms (min {r['min_ms']:.4f}, max "
+            f"{r['max_ms']:.4f}), {r['ms'] / main:.3f}x groups+mask, max "
+            f"abs err {r['err']:.3e} [{card}]")
+    return ab
 
 
 def spmm_phase(dev, card, ops, csrs) -> list:

@@ -1,7 +1,8 @@
 """The CUDA class kernels (SpMV and SpMM) and the microbenchmark
-kernels against their plain PyTorch versions on the card, the operator
-against the float64 golden, and `profile_engines` and `trace_context` on
-a CUDA operator.
+kernels against their plain PyTorch versions on the card (the dense
+kernel also on a class with a one-lane chunk and a full one, and its
+A/B arms), the operator against the float64 golden, and
+`profile_engines` and `trace_context` on a CUDA operator.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
@@ -21,7 +22,8 @@ from tilespmv_tpu_torch import TileSpMV
 from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import kernels, reference
 from tilespmv_tpu_torch.ops.cuda import stream_plan as sp
-from tilespmv_tpu_torch.scripts import microbench_gather, microbench_scatter
+from tilespmv_tpu_torch.scripts import (dense_probes, microbench_gather,
+                                        microbench_scatter)
 from tilespmv_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -264,6 +266,89 @@ def test_stream_kernel_matches_rows_reference(case, dtype, device):
             assert err <= tol * max(1.0, float(yp.abs().max())), (group,
                                                                    err)
         assert float(yp.abs().max()) > 0
+
+
+def dense_edges_csr():
+    """4096 x 4096, one output window, 257 dense 16x16 tiles: at (r, r)
+    full and at (r, r + 100) with 6 + r % 11 scattered nonzero columns
+    for tile-rows r < 128, and one full at (200, 5). Every tile-row
+    spans more than 8 tile-columns or holds one tile, so there is no band
+    class. The f32 dense class holds chunks of 256 active lanes and of 1
+    (T = 256); the f64 one (unique-row rounds, T = 128) chunks of 128 and
+    of 1."""
+    rng = np.random.default_rng(3)
+    r = np.arange(128)
+    tr = np.concatenate([r, r, [200]])
+    tc = np.concatenate([r, r + 100, [5]])
+    i, j = (a.ravel() for a in np.meshgrid(np.arange(16), np.arange(16),
+                                           indexing="ij"))
+    keep = np.ones((tr.size, 256), bool)
+    keep[128:256] = ((7 * j[None, :] + r[:, None]) % 16
+                     < 6 + r[:, None] % 11)
+    rows = (tr[:, None] * 16 + i)[keep]
+    cols = (tc[:, None] * 16 + j)[keep]
+    return generate.csr_from_coo(4096, 4096, rows, cols,
+                                 rng.standard_normal(rows.size))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_kernel_one_lane_and_full_chunks(dtype, device):
+    """dense.cu on a class with a one-lane chunk, a full chunk and tiles
+    with zero columns: one launch, the plain versions (dense_reference
+    and dense.cu's walk, dense_active_reference) within 1e-5 (f32) or
+    1e-12 (f64) of max(1, max|plain|); then every A/B arm of
+    scripts/dense_probes."""
+    csr = dense_edges_csr()
+    plan = TileSpMV(csr, device=device, dtype=dtype).device_plan()
+    d = plan.dense
+    nact = (d.meta[:, 0] >= 0).sum(dim=1).tolist()
+    assert 1 in nact and d.t_lanes in nact and plan.band is None
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, csr.n)).to(device, dtype)
+    xp = reference.pad_x(plan, x)
+    ylen = reference.zero_y(plan, xp).shape[0]
+    name = "dense" + ("_f64" if dtype == torch.float64 else "")
+    before = kernels.launch_counts()[name]
+    yk = kernels.dense_spmv(d, xp, torch.zeros(ylen, dtype=dtype,
+                                               device=device))
+    assert kernels.launch_counts()[name] == before + 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for plain in (reference.dense_reference,
+                  reference.dense_active_reference):
+        yp = plain(d, xp, torch.zeros(ylen, dtype=dtype, device=device))
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        assert err <= tol * max(1.0, float(yp.abs().max())), (plain, err)
+    arms = dense_probes.run_arms(d, xp, ylen, rounds=1)
+    assert list(arms) == list(dense_probes.ARMS)
+    assert all(a["ms"] > 0 for a in arms.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_kernel_takes_zero_columns_times_nonfinite_x(dtype, device):
+    """An Inf in x at column 1 of tile-column 100, a zero column of tile
+    (0, 100): dense.cu skips that column's value loads but takes every
+    product, so its NaN (0 * Inf) and Inf fall where dense_reference's
+    do, and its finite entries agree within 1e-5 (f32) or 1e-12 (f64)
+    of max(1, max|plain|)."""
+    csr = dense_edges_csr()
+    plan = TileSpMV(csr, device=device, dtype=dtype).device_plan()
+    x = np.random.default_rng(4).uniform(-1, 1, csr.n)
+    x[100 * 16 + 1] = np.inf
+    xp = reference.pad_x(plan, torch.from_numpy(x).to(device, dtype))
+    ylen = reference.zero_y(plan, xp).shape[0]
+    yk = kernels.dense_spmv(plan.dense, xp, torch.zeros(
+        ylen, dtype=dtype, device=device))
+    yp = reference.dense_reference(plan.dense, xp, torch.zeros(
+        ylen, dtype=dtype, device=device))
+    torch.cuda.synchronize()
+    assert bool(yp.isnan().any()) and bool(yp.isinf().any())
+    assert torch.equal(yk.isnan(), yp.isnan())
+    assert torch.equal(yk.isinf(), yp.isinf())
+    fin = yp.isfinite()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    err = float((yk[fin] - yp[fin]).abs().max())
+    assert err <= tol * max(1.0, float(yp[fin].abs().max()))
 
 
 def _mb_check(name, run, plain) -> None:

@@ -113,6 +113,25 @@ def test_f64_dense_reference_matches_df64_interpret(name):
           csr_magnitude(csr, x))
 
 
+@pytest.mark.parametrize("name", ["dense_t128", "dense_t256"])
+def test_f64_dense_active_reference_matches(name):
+    """dense.cu's walk (the active lane groups, each tile's nonzero
+    columns) against the df64 interpret arm (TOL) and against
+    dense_reference within 1e-12 * max(1, max|y|) (the same f64
+    products, added in another order)."""
+    csr = MATRICES[name]()
+    jplan, tplan = plans(csr)
+    x = x_for(csr.n, seed=2)
+    want = pair_flat(jk.dense_class_call(
+        jplan.dense, jk.x_to_panels(jplan, jnp.asarray(x)),
+        jplan.n_windows, interpret=True), y_len(tplan))
+    got = run_torch(ref.dense_active_reference, tplan.dense, tplan, x)
+    close(got, want, csr_magnitude(csr, x))
+    plain = run_torch(ref.dense_reference, tplan.dense, tplan, x)
+    assert np.max(np.abs(got - plain)) <= 1e-12 * max(
+        1.0, float(np.max(np.abs(plain))))
+
+
 def torch_class(st):
     """A NumPy stream class with its arrays as CPU tensors."""
     return dataclasses.replace(st, **{

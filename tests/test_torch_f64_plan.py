@@ -3,7 +3,7 @@ against tilespmv_tpu's double-f32 plan, with the native library on and
 off: every index and control array bit-equal, every value array equal
 to the reference's f32 parts summed in float64 (lane_plan_from_jax
 carries them across), on the matrices that reach each f64 routing
-branch."""
+branch; the dense class's derived arrays follow its meta and values."""
 import dataclasses
 
 import numpy as np
@@ -25,7 +25,8 @@ from tilespmv_tpu_torch.io.mmio import CSRMatrix as TCSR
 from tilespmv_tpu_torch.ops.cuda import lane_plan as t_lane
 from tilespmv_tpu_torch.ops.cuda import stream_plan as t_stream
 
-from test_torch_plan import STREAM_CASES, _skewed, assert_same
+from test_torch_plan import (STREAM_CASES, _skewed, assert_same,
+                             check_dense_derived)
 
 # (generator, args, kwargs, what the f64 plan must contain)
 CASES = {
@@ -75,7 +76,10 @@ def test_f64_lane_plan_matches_reference(name, native_mode):
     for cls in (tplan.dense, tplan.band, tplan.stream, tplan.stream2):
         if cls is not None:
             assert cls.val.dtype == np.float64
-    assert_same(lane_plan_from_jax(jplan), tplan)
+    carried = lane_plan_from_jax(jplan)
+    assert_same(carried, tplan)
+    check_dense_derived(tplan.dense)
+    check_dense_derived(carried.dense)
 
     streams = [s for s in (tplan.stream, tplan.stream2) if s is not None]
     for want in CASES[name][3]:

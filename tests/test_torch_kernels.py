@@ -90,6 +90,20 @@ def test_dense_reference_matches_interpret(name):
     close(run_torch(ref.dense_reference, tplan.dense, tplan, x), want)
 
 
+@pytest.mark.parametrize("name", ["dense_cb2", "dense_partial"])
+def test_dense_active_reference_matches_interpret(name):
+    """dense.cu's walk (the active lane groups, each tile's nonzero
+    columns) against the Pallas kernel and against dense_reference."""
+    jplan, tplan = plans(MATRICES[name]())
+    x = x_for(jplan.n)
+    want = window_flat(jk.dense_class_call(
+        jplan.dense, jk.x_to_panels(jplan, jnp.asarray(x)),
+        jplan.n_windows, interpret=True), y_len(tplan))
+    got = run_torch(ref.dense_active_reference, tplan.dense, tplan, x)
+    close(got, want)
+    close(got, run_torch(ref.dense_reference, tplan.dense, tplan, x))
+
+
 @pytest.mark.parametrize("name", ["w16", "w24", "w96"])
 def test_sparse_reference_matches_interpret(name):
     jplan, tplan = plans(MATRICES[name]())

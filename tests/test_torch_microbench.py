@@ -21,7 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.scripts import microbench_gather as t_gather
 from tilespmv_tpu_torch.scripts import microbench_scatter as t_scatter
-from tilespmv_tpu_torch.scripts import stream_probes
+from tilespmv_tpu_torch.scripts import dense_probes, stream_probes
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 TOL = 1e-5
@@ -111,7 +111,7 @@ def test_microbench_wrappers_refuse_bad_inputs():
 
 @pytest.mark.parametrize("script,argv", [
     (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"]),
-    (stream_probes, None)])
+    (stream_probes, None), (dense_probes, None)])
 def test_scripts_exit_nonzero_without_cuda(script, argv, monkeypatch,
                                            capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -135,3 +135,19 @@ def test_stream_probes_edit_the_kernel_source():
     assert "__shfl_up_sync" not in out["noscan"]
     assert gather not in out["loads"]
     assert "__shfl_up_sync" not in out["loads"]
+
+
+def test_dense_probes_edit_the_kernel_source():
+    """Each copy of scripts/dense_probes.py is dense.cu as it stands with
+    the column mask taken as all set (groups), a block per lane group in
+    place of the group list (all+mask), or both (all)."""
+    src = (build.CSRC_DIR / "dense.cu").read_text()
+    out = {arm: edit(src) for arm, edit in dense_probes.EDITS.items()}
+    assert tuple(dense_probes.ARMS) == ("groups+mask", *out)
+    for arm, o in out.items():
+        assert o != src and o.count("{") == o.count("}"), arm
+    mask, table = "cmask[(long long)", "groups[blockIdx.x]"
+    assert mask in src and table in src
+    assert mask not in out["groups"] and table in out["groups"]
+    assert mask in out["all+mask"] and table not in out["all+mask"]
+    assert mask not in out["all"] and table not in out["all"]

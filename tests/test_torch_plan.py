@@ -1,7 +1,9 @@
 """The port's NumPy host side (tilespmv_tpu_torch) against tilespmv_tpu:
 tile_create and build_lane_plan must produce bit-equal arrays, with the
 native library on and off, and the stream builders every geometry
-(mono, dual, free placement, two-rate split)."""
+(mono, dual, free placement, two-rate split). The dense class's derived
+arrays (`cmask`, `groups`, this package's only) must follow its meta and
+values, in the port's plans and in plans carried from JAX."""
 import dataclasses
 
 import numpy as np
@@ -40,6 +42,15 @@ CASES = {
                     dict(seed=13)),
     "wide_w_class": ("block_random", (2048, 2048),
                      dict(density=0.05, fill=0.33, seed=5)),
+    # the rest of io/generate.py's archetypes, at small sizes
+    "stencil_2d": ("stencil_2d", (48, 48), dict(seed=20)),
+    "stencil_3d": ("stencil_3d", (12, 12, 12), dict(seed=22)),
+    "rectangular": ("rectangular", (2048, 256, 8), dict(seed=23)),
+    "empty_stripes": ("empty_stripes", (1024, 1024, 3), dict(seed=25)),
+    "duplicate_heavy": ("duplicate_heavy", (512, 512), dict(seed=26)),
+    "permuted_banded": ("permuted_banded", (1024, 1024, 8), dict(seed=27)),
+    "diag_plus_hubs": ("diag_plus_hubs", (1024, 1024), dict(seed=29)),
+    "hypersparse": ("hypersparse", (16384, 16384, 1e-4), dict(seed=30)),
 }
 
 
@@ -69,6 +80,29 @@ def assert_same(a, b, path="plan"):
         assert a == b, path
 
 
+def check_dense_derived(d) -> None:
+    """`d.groups` and `d.cmask` against meta and val, lane by lane: a
+    group of DENSE_GROUP lanes is listed iff one of its lanes is active;
+    a tile's bit j is set iff column j of its values holds a nonzero."""
+    if d is None:
+        return
+    val, meta = np.asarray(d.val), np.asarray(d.meta)
+    nch, T = meta.shape[0], d.t_lanes
+    G = t_lane.DENSE_GROUP
+    want_groups, want_mask = [], np.zeros((nch, T), np.int64)
+    for c in range(nch):
+        for t0 in range(0, T, G):
+            if (meta[c, 0, t0:t0 + G] >= 0).any():
+                want_groups.append(c * T + t0)
+        for t in np.flatnonzero(meta[c, 0] >= 0):
+            cols = np.flatnonzero((val[c, :, :, t] != 0).any(axis=1))
+            want_mask[c, t] = sum(1 << int(j) for j in cols)
+    groups, cmask = np.asarray(d.groups), np.asarray(d.cmask)
+    assert groups.dtype == np.int32 and cmask.dtype == np.int32
+    np.testing.assert_array_equal(groups, want_groups)
+    np.testing.assert_array_equal(cmask, want_mask)
+
+
 @pytest.fixture(params=["native", "numpy"])
 def native_mode(request, monkeypatch):
     """Both packages with the native library (if it builds) or with
@@ -90,7 +124,10 @@ def test_lane_plan_bit_equal(name, native_mode):
         assert_same(getattr(jtm, bucket), getattr(ttm, bucket), bucket)
     jplan = j_lane.build_lane_plan(jtm)
     tplan = t_lane.build_lane_plan(ttm)
-    assert_same(lane_plan_from_jax(jplan), tplan)
+    carried = lane_plan_from_jax(jplan)
+    assert_same(carried, tplan)
+    check_dense_derived(tplan.dense)
+    check_dense_derived(carried.dense)
 
 
 def _entries(seed, m, n, nnz, heavy_rows=0):

@@ -8,8 +8,10 @@ is the reference's f32 parts summed in float64 (dense a1 + a2 + vl from
 rows 3j, 3j+1, 3j+2; band hi + lo from planes 2c, 2c+1; stream
 val + val_lo) in the f32 layout, and the segmented-scan planes
 (`segmask`) are dropped. Stream classes gain this package's per-entry
-rows (`erow`), derived from their planes. This module imports nothing
-of JAX: the caller passes the object in.
+rows (`erow`), derived from their planes, and the dense class its
+column masks and active lane groups (`cmask`, `groups`), derived from
+its values and meta. This module imports nothing of JAX: the caller
+passes the object in.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import dataclasses
 import numpy as np
 
 from .ops.cuda.lane_plan import (BandChunks, DenseChunks, LanePlan,
-                                 SparseChunks)
+                                 SparseChunks, with_dense_derived)
 from .ops.cuda.stream_plan import StreamChunks, with_entry_rows
 from .ops.plan import ResidualEngine
 
@@ -66,11 +68,13 @@ def stream_chunks_from_jax(st) -> StreamChunks:
 
 
 def _dense(d):
-    if d is None or not d.df64:
-        return _convert(DenseChunks, d)
-    v = np.asarray(d.val)
-    return _convert(DenseChunks, d, val=_f64(v[:, 0::3], v[:, 1::3],
-                                             v[:, 2::3]))
+    if d is None:
+        return None
+    derived = dict(cmask=None, groups=None)
+    if d.df64:
+        v = np.asarray(d.val)
+        derived["val"] = _f64(v[:, 0::3], v[:, 1::3], v[:, 2::3])
+    return with_dense_derived(_convert(DenseChunks, d, **derived))
 
 
 def _band(bd):

@@ -5,7 +5,8 @@ one more nvcc call links the objects into one shared library with a
 plain C interface, in the repo's git-ignored `build/cuda/` directory, at
 first use; ctypes loads it. Nothing here runs at import. A missing nvcc
 or a failed build raises: there is no fallback to the plain versions on
-a CUDA device.
+a CUDA device. The probe scripts also build edited copies of a source
+(`build_edited`), which the port never loads.
 """
 from __future__ import annotations
 
@@ -29,11 +30,11 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # success), a launch's being cudaGetLastError() right after it
 ENTRY_POINTS = {
     "tsp_band": [_P] * 6 + [_I] * 3 + [_P],
-    "tsp_dense": [_P] * 6 + [_I] * 4 + [_P],
+    "tsp_dense": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "tsp_sparse": [_P] * 6 + [_I] * 5 + [_P],
     "tsp_stream": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_f64": [_P] * 6 + [_I] * 3 + [_P],
-    "tsp_dense_f64": [_P] * 6 + [_I] * 4 + [_P],
+    "tsp_dense_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "tsp_stream_f64": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_spmm": [_P] * 6 + [_I] * 4 + [_P],
     "tsp_dense_spmm": [_P] * 6 + [_I] * 5 + [_P],
@@ -108,3 +109,45 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def edit_once(src: str, old: str, new: str) -> str:
+    """`src` with its one occurrence of `old` replaced by `new`; raises
+    where `old` is not there exactly once (the source has changed)."""
+    if src.count(old) != 1:
+        raise RuntimeError(f"the kernel source no longer holds "
+                           f"{old.strip()!r} once: update the probe")
+    return src.replace(old, new)
+
+
+def build_edited(source: str, edits: dict, entries) -> dict:
+    """{name: ctypes library} of copies of csrc/`source`, each with
+    edits[name] (a function of the source text) applied, built into
+    BUILD_DIR/probes/ by one nvcc each, all started together; each
+    library has the C signatures of `entries`. A library is loaded
+    once a process: call this once and keep what it returns."""
+    src = (CSRC_DIR / source).read_text()
+    out = BUILD_DIR / "probes"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    stem = pathlib.Path(source).stem
+    jobs = {}
+    for name, edit in edits.items():
+        tag = "".join(ch if ch.isalnum() else "_" for ch in name)
+        cu, so = out / f"{stem}_{tag}.cu", out / f"{stem}_{tag}.so"
+        cu.write_text(edit(src))
+        jobs[name] = (cu, so)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                     str(so), str(cu)])
+                  for cu, so in jobs.values()]:
+            f.result()
+    libs = {}
+    for name, (_, so) in jobs.items():
+        lib = ctypes.CDLL(str(so))
+        for entry in entries:
+            fn = getattr(lib, entry)
+            fn.argtypes = ENTRY_POINTS[entry]
+            fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs

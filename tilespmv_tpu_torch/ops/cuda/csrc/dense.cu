@@ -1,28 +1,46 @@
 // Dense-tile class SpMV for sm_90a, f32 and f64.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_dense_kernel (called by
-// dense_class_call: the f32 one-hot route, and the df64 branch :378-409
-// as native FP64): for chunk c of step c/c_batch and lane t with
+// dense_class_call :679: the f32 one-hot route, and the df64 branch
+// :378-409 as native FP64): for chunk c of step c/c_batch and lane t with
 // xloc = meta[c, 0, t] >= 0,
 //   yc[i] = sum_j val[c, j, i, t] * x[tilecol*16 + j],
 //   tilecol = pb[step*K + (xloc >> 8)]*256 + (xloc & 255),
 // added to y[(cw[step]*256 + meta[c, 1, t])*16 + i]. Lanes with
-// xloc < 0 are inert padding and skipped.
+// xloc < 0 are inert padding.
 //
-// Bound: device-memory bytes (16*16 values per tile, 1 KB in f32 and 2 KB
-// in f64, at 256 FMAs). The TPU routed each chunk to its window by a
-// one-hot matmul; here one thread owns one tile (chunk, lane): it loads
-// the tile's 16 x values once, keeps 16 row sums in registers, and adds
-// them with atomicAdd (native for double on sm_60 and later), because
-// several tiles of one chunk (or of chunks run by other blocks) can share
-// a tile-row. An f64 plan's unique-row chunks carry many inert lanes;
-// their threads return after one meta load. Lanes are the fastest
-// dimension of val, so a warp's value loads are coalesced.
+// Bound: the bytes of the active tiles' values (1 KB a tile in f32, 2 KB
+// in f64, for 256 FMAs). At one RHS a value feeds one FMA (0.5 flop/B in
+// f32, 0.25 in f64): the tensor cores have nothing to multiply, and TMA's
+// bulk tiles would copy the inert lanes and zero columns skipped here.
+// What pays is threads in flight, coalesced loads and fewer bytes. The
+// planner pads each chunk's lanes at its end (mixed_large: 580 active
+// tiles in 4,096 f32 lane slots, 12,766 in 19,712 f64 ones), so:
+// * a block is one group of 32 lanes of one chunk and kWarps of the 16
+//   tile rows (grid y covers the rest); warp w holds row i of the 32
+//   tiles, so its loads of val[c][j][i][t0 .. t0+31] are coalesced;
+// * the grid runs only the groups that hold an active lane (`groups`,
+//   chunk*T + first lane, derived from meta);
+// * the group's x blocks, all 16 values of each active tile, are staged
+//   once in shared memory;
+// * each tile's 16-bit nonzero-column mask (`cmask`, derived from val)
+//   gates its value loads, so a warp fetches only the 32-byte sectors
+//   where some lane has that column (f64 mixed_large: 10.7 of 26.3 MB);
+//   a skipped value is its zero, and every product is still taken, so a
+//   non-finite x meets 0 as in the Pallas kernel and dense_reference;
+// * each (tile, row) sum is added with one atomicAdd (native for double
+//   on sm_60 and later): tiles of one tile-row meet across chunks.
+// scripts/dense_probes.py times this kernel against copies of it without
+// the group list (every lane group, a block with no active lane exiting
+// whole) or without the mask (every column), PERF.md.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kB = 16;
+constexpr int kB = 16;       // tile edge
+constexpr int kLanes = 32;   // chunk lanes (tiles) of one block: a warp's
+constexpr int kWarps = 8;    // tile rows of one block: two 256-thread
+                             // blocks per lane group
 
 __device__ __forceinline__ float fmadd(float a, float b, float c) {
   return fmaf(a, b, c);
@@ -32,72 +50,80 @@ __device__ __forceinline__ double fmadd(double a, double b, double c) {
 }
 
 template <typename V>
-__global__ void dense_kernel(const V* __restrict__ val,
-                             const int* __restrict__ meta,
-                             const int* __restrict__ pb,
-                             const int* __restrict__ cw,
-                             const V* __restrict__ x,
-                             V* __restrict__ y, int nchunks,
-                             int t_lanes, int k_panels, int c_batch) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= (long long)nchunks * t_lanes) return;
-  const int c = static_cast<int>(gid / t_lanes);
-  const int t = static_cast<int>(gid % t_lanes);
-  const int* mc = meta + (long long)c * 2 * t_lanes;
-  const int xloc = mc[t];
-  if (xloc < 0) return;
+__global__ void __launch_bounds__(kLanes * kWarps)
+dense_kernel(const V* __restrict__ val, const int* __restrict__ meta,
+             const int* __restrict__ cmask, const int* __restrict__ groups,
+             const int* __restrict__ pb, const int* __restrict__ cw,
+             const V* __restrict__ x, V* __restrict__ y, int t_lanes,
+             int k_panels, int c_batch) {
+  __shared__ V xs[kLanes * (kB + 1)];   // +1: no bank conflicts over l
+  const int g = groups[blockIdx.x];
+  const int c = g / t_lanes;
+  const int t0 = g - c * t_lanes;
   const int step = c / c_batch;
-  const V* xb =
-      x + ((long long)pb[(long long)step * k_panels + (xloc >> 8)] * 256 +
-           (xloc & 255)) * kB;
-  V xv[kB];
-#pragma unroll
-  for (int j = 0; j < kB; ++j) xv[j] = xb[j];
-  // val[c][j][i][t]
-  const V* v = val + (long long)c * kB * kB * t_lanes + t;
-  V acc[kB];
-#pragma unroll
-  for (int i = 0; i < kB; ++i) acc[i] = 0;
+  const int* mc = meta + (long long)c * 2 * t_lanes + t0;
+  const int l = threadIdx.x % kLanes;
+  const int i = blockIdx.y * kWarps + threadIdx.x / kLanes;
+  const bool active = mc[l] >= 0;
+  const unsigned mask = active ? cmask[(long long)c * t_lanes + t0 + l] : 0u;
+  // the values first: they do not wait for x
+  const V* v = val + ((long long)c * kB * kB + i) * t_lanes + t0 + l;
+  V a[kB];
 #pragma unroll
   for (int j = 0; j < kB; ++j) {
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      acc[i] = fmadd(v[(long long)(j * kB + i) * t_lanes], xv[j], acc[i]);
+    a[j] = (mask >> j & 1u) ? v[(long long)j * kB * t_lanes] : V(0);
+  }
+  // the group's x blocks, entry (tile, column) by thread: 16 neighbouring
+  // threads read one tile's 16 values
+  const int* pbs = pb + (long long)step * k_panels;
+  for (int e = threadIdx.x; e < kLanes * kB; e += kLanes * kWarps) {
+    const int loc = mc[e / kB];
+    if (loc >= 0) {
+      xs[e / kB * (kB + 1) + e % kB] =
+          x[((long long)pbs[loc >> 8] * 256 + (loc & 255)) * kB + e % kB];
     }
   }
-  V* yr = y + ((long long)cw[step] * 256 + mc[t_lanes + t]) * kB;
+  if (!__syncthreads_or(active) || !active) return;
+  const V* xl = xs + l * (kB + 1);
+  V acc = 0;
 #pragma unroll
-  for (int i = 0; i < kB; ++i) atomicAdd(yr + i, acc[i]);
+  for (int j = 0; j < kB; ++j) acc = fmadd(a[j], xl[j], acc);
+  atomicAdd(y + ((long long)cw[step] * 256 + mc[t_lanes + l]) * kB + i, acc);
 }
 
+// grid x: the `nblocks` lane groups; grid y: kWarps tile rows a block
 template <typename V>
-int launch(const V* val, const int* meta, const int* pb, const int* cw,
-           const V* x, V* y, int nchunks, int t_lanes, int k_panels,
-           int c_batch, void* stream) {
-  const long long n = (long long)nchunks * t_lanes;
-  if (n > 0) {
-    const int threads = 128;
-    dense_kernel<V><<<static_cast<unsigned>((n + threads - 1) / threads),
-                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        val, meta, pb, cw, x, y, nchunks, t_lanes, k_panels, c_batch);
+int launch(const V* val, const int* meta, const int* cmask,
+           const int* groups, int nblocks, const int* pb, const int* cw,
+           const V* x, V* y, int t_lanes, int k_panels, int c_batch,
+           void* stream) {
+  if (t_lanes % kLanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (nblocks > 0) {
+    dense_kernel<V>
+        <<<dim3(static_cast<unsigned>(nblocks), kB / kWarps),
+           kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+            val, meta, cmask, groups, pb, cw, x, y, t_lanes, k_panels,
+            c_batch);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int tsp_dense(const float* val, const int* meta, const int* pb,
+extern "C" int tsp_dense(const float* val, const int* meta, const int* cmask,
+                         const int* groups, int ngroups, const int* pb,
                          const int* cw, const float* x, float* y,
-                         int nchunks, int t_lanes, int k_panels,
-                         int c_batch, void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, t_lanes, k_panels,
-                c_batch, stream);
+                         int t_lanes, int k_panels, int c_batch,
+                         void* stream) {
+  return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
+                k_panels, c_batch, stream);
 }
 
 extern "C" int tsp_dense_f64(const double* val, const int* meta,
-                             const int* pb, const int* cw, const double* x,
-                             double* y, int nchunks, int t_lanes,
+                             const int* cmask, const int* groups,
+                             int ngroups, const int* pb, const int* cw,
+                             const double* x, double* y, int t_lanes,
                              int k_panels, int c_batch, void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, t_lanes, k_panels,
-                c_batch, stream);
+  return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
+                k_panels, c_batch, stream);
 }

@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from . import build
-from .lane_plan import ROW_WINDOW, LanePlan, sparse_meta_rows
+from .lane_plan import DENSE_GROUP, ROW_WINDOW, LanePlan, sparse_meta_rows
 from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         MB_SCATTER_ARMS, MB_SLABS, assemble, assemble_mm,
                         band_reference, band_spmm_reference,
@@ -44,6 +44,9 @@ from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
 # reference fuses (tilespmv_tpu/ops/spmv.py:84)
 SPMM_K = range(2, 17)
+# tile rows of one dense.cu block (its kWarps): a block is one lane group
+# of DENSE_GROUP tiles by DENSE_ROWS of the 16 rows
+DENSE_ROWS = 8
 # slabs per block of the SpMV stream kernel (stream.cu): a block takes up
 # to this many consecutive slabs of one step. 2 was the fastest of
 # {1, 2, 4, S} on the flagship stream classes of both dtypes (PERF.md)
@@ -167,6 +170,15 @@ def _check_dense(d, dev, dtype=torch.float32) -> int:
     return nch
 
 
+def _check_dense_derived(d, nch: int, dev) -> int:
+    """dense.cu's derived arrays (cmask, groups); returns the group
+    count."""
+    _check("dense.cmask", d.cmask, torch.int32, (nch, d.t_lanes), dev)
+    ng = d.groups.shape[0] if isinstance(d.groups, torch.Tensor) else -1
+    _check("dense.groups", d.groups, torch.int32, (ng,), dev)
+    return ng
+
+
 def _check_sparse(s, dev) -> int:
     nch, W, T = s.val.shape[0], s.width, s.t_lanes
     if nch % s.c_batch:
@@ -206,6 +218,30 @@ def stream_blocks(st, group: int = STREAM_GROUP) -> int:
     return st.cw.shape[0] * -(-st.s_batch // g)
 
 
+def dense_launch(d, table: bool = True) -> dict:
+    """One dense.cu launch on class `d` (tensors on any device): "blocks"
+    and "threads"; "active" tiles of "slots" lanes; "val_bytes", the
+    32-byte sectors of values that its warps load (a sector of lanes
+    t..t+32/vbytes-1 of (c, j, i) wherever one of its lanes has column
+    j), and "bytes", those plus the indices of each group (its entry,
+    meta's two rows and cmask over its lanes), each active tile's x block
+    and its 16 y rows. `table` False: the arm over every lane group."""
+    nch, T = d.val.shape[0], d.t_lanes
+    vb = d.val.element_size()
+    per = 32 // vb
+    ng = int(d.groups.shape[0]) if table else nch * T // DENSE_GROUP
+    bits = torch.arange(16, device=d.cmask.device, dtype=torch.int32)
+    cols = ((d.cmask[:, None, :] >> bits[None, :, None]) & 1) != 0
+    sectors = int(cols.view(nch, 16, T // per, per).any(dim=3).sum())
+    active = int((d.meta[:, 0] >= 0).sum())
+    val_bytes = sectors * 16 * 32
+    nbytes = (val_bytes + ng * (1 + 3 * DENSE_GROUP) * 4
+              + active * 2 * 16 * vb)
+    return dict(blocks=ng * (16 // DENSE_ROWS),
+                threads=ng * 16 * DENSE_GROUP, active=active,
+                slots=nch * T, val_bytes=val_bytes, bytes=nbytes)
+
+
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums
     (f32 or f64)."""
@@ -224,16 +260,19 @@ def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32 or
-    f64)."""
+    f64); the kernel runs the lane groups in `groups` and, in each tile,
+    the columns in its `cmask`."""
     dt = _value_dtype(d.val)
     _check_xy(x, y, dt)
     nch = _check_dense(d, y.device, dt)
+    ng = _check_dense_derived(d, nch, y.device)
     if not _use_kernel(y):
         return dense_reference(d, x, y)
     name = "dense" + _SUFFIX[dt]
     err = getattr(build.load(), "tsp_" + name)(
-        _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
-        nch, d.t_lanes, d.k_panels, d.c_batch, _stream())
+        _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
+        _p(d.cw), _p(x), _p(y), d.t_lanes, d.k_panels, d.c_batch,
+        _stream())
     _launched(name, err)
     return y
 

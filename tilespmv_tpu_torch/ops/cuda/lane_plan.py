@@ -10,7 +10,9 @@ their layouts are the reference package's:
   (16, 16*C) bricks, one chunk per 256-tile-row output window, lane =
   tile-row;
 * the **dense class** — densified 16x16 tiles, T per chunk, routed to
-  their output row by meta[LROW];
+  their output row by meta[LROW]; this package alone adds each tile's
+  nonzero-column mask and the list of lane groups holding an active
+  tile (`with_dense_derived`), which the H100 dense kernel reads;
 * the **W-classes** — packed sparse-entry tiles: W value slots (slot 0
   reserved zero, entries row-sorted), 4-bit columns packed 8 per int32
   and 16 packed row-end bytes in the meta rows;
@@ -74,6 +76,9 @@ DF64_ROUND_FILL_MIN = 12
 META_XLOC = 0
 META_LROW = 1
 DENSE_MROWS = 2
+# lanes of a dense-class group, a block of the H100 dense kernel (a
+# warp's lanes); every T in T_CHOICES is a multiple
+DENSE_GROUP = 32
 
 # band (brick) class selection
 BAND_MAX_COLS = 8
@@ -105,7 +110,9 @@ def sparse_meta_rows(width: int) -> int:
 class DenseChunks:
     """Densified-tile class: (nchunks, 16, 16, T) value blocks, j-major
     ([c, j, i, t] = tile t's entry (i, j)). `cw`/`cfirst` are per step
-    (`c_batch` same-window chunks)."""
+    (`c_batch` same-window chunks). `cmask` and `groups` are this
+    package's only (the reference has no such fields), derived from val
+    and meta by `with_dense_derived` for the H100 dense kernel."""
     val: Any       # (nchunks, 16, 16, T) f32 or f64
     meta: Any      # (nchunks, DENSE_MROWS, T) int32
     pb: Any        # (nsteps*K,) int32 x panel ids
@@ -115,6 +122,12 @@ class DenseChunks:
     t_lanes: int
     k_panels: int = 1
     c_batch: int = 1
+    # (nchunks, T) int32: bit j set where tile (c, t) has a nonzero in
+    # column j; 0 on inert lanes (dense_column_masks)
+    cmask: Any = None
+    # (ngroups,) int32: chunk*T + first lane of each DENSE_GROUP-lane
+    # group holding an active lane, ascending (dense_groups)
+    groups: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,6 +279,38 @@ def map_arrays(plan: LanePlan, fn) -> LanePlan:
         residual=conv("residual", plan.residual),
         stream=conv("stream", plan.stream),
         stream2=conv("stream2", plan.stream2))
+
+
+def dense_groups(meta: np.ndarray, t_lanes: int) -> np.ndarray:
+    """(ngroups,) int32: chunk * T + first lane of every group of
+    DENSE_GROUP consecutive lanes of a dense class that holds an active
+    lane (meta[XLOC] >= 0), ascending: the blocks of a dense.cu launch."""
+    if t_lanes % DENSE_GROUP:
+        raise ValueError(f"dense class T = {t_lanes}: not a multiple of "
+                         f"{DENSE_GROUP}")
+    act = np.asarray(meta)[:, META_XLOC] >= 0
+    g = act.reshape(act.shape[0], -1, DENSE_GROUP).any(axis=2)
+    return (np.flatnonzero(g) * DENSE_GROUP).astype(np.int32)
+
+
+def dense_column_masks(val: np.ndarray, meta: np.ndarray) -> np.ndarray:
+    """(nchunks, T) int32: bit j set where tile (c, t) holds a nonzero in
+    column j (val[c, j, :, t]), 0 on inert lanes (meta[XLOC] < 0)."""
+    nz = (np.asarray(val) != 0).any(axis=2)               # (c, j, t)
+    bits = (nz.astype(np.int32) << np.arange(16, dtype=np.int32)[
+        None, :, None]).sum(axis=1)
+    act = np.asarray(meta)[:, META_XLOC] >= 0
+    return np.where(act, bits, 0).astype(np.int32)
+
+
+def with_dense_derived(d: Optional[DenseChunks]) -> Optional[DenseChunks]:
+    """`d` (NumPy arrays) with its derived fields `cmask` and `groups`;
+    None for None."""
+    if d is None:
+        return None
+    return dataclasses.replace(
+        d, cmask=dense_column_masks(d.val, d.meta),
+        groups=dense_groups(d.meta, d.t_lanes))
 
 
 def _expand(ptr):
@@ -929,10 +974,10 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
         meta = np.zeros((md["nchunks"], DENSE_MROWS, t_lanes), np.int32)
         meta[:, META_XLOC] = md["xloc"]
         meta[:, META_LROW] = md["lrow"]
-        dense = DenseChunks(
+        dense = with_dense_derived(DenseChunks(
             val=f64_plan_value(vt) if f64 else vt.astype(np.float32),
             meta=meta, pb=md["pb"], cw=md["cw"], cfirst=md["cfirst"],
-            t_lanes=t_lanes, k_panels=kp, c_batch=cb)
+            t_lanes=t_lanes, k_panels=kp, c_batch=cb))
         n_windows = max(n_windows, md["n_windows"])
 
     sparses = []                      # ascending width

@@ -40,8 +40,8 @@ import numpy as np
 import torch
 
 from ..plan import ResidualEngine
-from .lane_plan import (PANEL_TC, ROW_WINDOW, BandChunks, DenseChunks,
-                        LanePlan, SparseChunks, map_arrays)
+from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, BandChunks,
+                        DenseChunks, LanePlan, SparseChunks, map_arrays)
 from .stream_plan import LANES, RW_ROWS, SPAN_ROWS, SUBS, StreamChunks
 
 _B = 16
@@ -115,6 +115,36 @@ def dense_reference(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     xg = _x_blocks(pb, xloc.clamp(min=0), x)              # (nch, 16j, T)
     yc = (_rhs(d.val, x) * xg[:, :, None]).sum(dim=1)     # (nch, 16i, T)
     return _route(yc, d.cw.long()[step], d.meta[:, 1].long(), xloc >= 0, y)
+
+
+def dense_active_reference(d, x: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+    """Dense class as dense.cu walks it: only the DENSE_GROUP-lane groups
+    listed in `groups` (chunk*T + first lane), and in each active tile
+    only the values of the columns j set in its `cmask` (the others
+    taken as 0): y[(cw*256 + lrow)*16 + i] += sum_j val[c, j, i, t] *
+    x[tilecol*16 + j]. Every product is taken, so it equals
+    dense_reference for any x, a non-finite x times a zero column
+    included."""
+    T = d.t_lanes
+    dev = y.device
+    g = d.groups.long()
+    lane = (g % T)[:, None] + torch.arange(DENSE_GROUP, device=dev)
+    c = (g // T)[:, None].expand_as(lane)                 # (ng, 32)
+    xloc = d.meta[c, 0, lane].long()
+    act = xloc >= 0
+    step = c // d.c_batch
+    loc = xloc.clamp(min=0)
+    tc = (d.pb.view(-1, d.k_panels).long()[step, loc >> 8] * PANEL_TC
+          + (loc & (PANEL_TC - 1)))
+    j = torch.arange(_B, device=dev)
+    xg = x[tc[..., None] * _B + j]                        # (ng, 32, 16j)
+    on = ((d.cmask[c, lane].long()[..., None] >> j) & 1).bool()
+    v = d.val[c, :, :, lane]                              # (ng, 32, j, i)
+    yc = (torch.where(on[..., None], v, 0) * xg[..., None]).sum(dim=2)
+    rows = ((d.cw.long()[step] * ROW_WINDOW + d.meta[c, 1, lane].long())
+            * _B)[..., None] + j
+    return y.index_add_(0, rows[act].reshape(-1), yc[act].reshape(-1))
 
 
 def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

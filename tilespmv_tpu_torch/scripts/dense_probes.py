@@ -1,0 +1,150 @@
+"""The dense-class kernel (dense.cu) against copies of it without one or
+both of its two savings, on the card.
+
+    python -m tilespmv_tpu_torch.scripts.dense_probes
+
+Builds ops/cuda/csrc/dense.cu as the port does and three copies of it,
+each with one or both of two edits (build.build_edited), and runs them
+as four arms:
+
+  groups+mask: dense.cu itself, which the wrapper runs: a block for each
+               lane group that holds an active tile (`DenseChunks.groups`),
+               each tile's zero columns not loaded (`cmask`);
+  groups:      the same blocks, every column's values loaded (the mask
+               taken as all 16 columns);
+  all+mask:    a block for every lane group of the class (`groups` not
+               read), a block with no active tile exiting whole;
+  all:         both edits.
+
+Every arm computes the same y. Times each on the dense class of
+mixed_large (io/generate.py CORPUS, full size) in f32 and f64: the
+device time of one launch (utils.profiling.graph_ms), the arms in turns,
+forward then backward, ROUNDS times, after each arm is held to
+reference.dense_reference within 1e-5 (f32) or 1e-12 (f64) of
+max(1, max|plain|). Prints the card's name and power limit, then per
+dtype and arm:
+
+    mixed_large f64 groups+mask: median ... ms (min ..., max ...), ...x first arm, max abs err ...
+
+Needs a CUDA device and nvcc: exits 2 without a device.
+"""
+from __future__ import annotations
+
+import statistics
+import sys
+
+import numpy as np
+import torch
+
+from ..io import generate
+from ..ops.cuda import build, kernels, reference
+from ..ops.cuda.lane_plan import DENSE_GROUP
+from ..ops.spmv import TileSpMV
+from ..utils.profiling import card_line, graph_ms
+
+MATRIX = "mixed_large"
+ROUNDS = 2
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+_MASK = ("  const unsigned mask = active ? cmask[(long long)c * t_lanes + t0"
+         " + l] : 0u;\n")
+_GROUP = "  const int g = groups[blockIdx.x];\n"
+
+
+def _no_mask(src: str) -> str:
+    return build.edit_once(src, _MASK,
+                           "  const unsigned mask = active ? 0xFFFFu : 0u;\n")
+
+
+def _every_group(src: str) -> str:
+    return build.edit_once(src, _GROUP,
+                           "  const int g = blockIdx.x * kLanes;\n")
+
+
+# arm: the edit of dense.cu (groups+mask: none)
+EDITS = {"groups": _no_mask, "all+mask": _every_group,
+         "all": lambda src: _every_group(_no_mask(src))}
+ARMS = ("groups+mask", *EDITS)
+_libs = None
+
+
+def arm_libs() -> dict:
+    """{arm: ctypes library}: the port's own for groups+mask, the edited
+    copies built on the first call of the process."""
+    global _libs
+    if _libs is None:
+        _libs = {ARMS[0]: build.load(), **build.build_edited(
+            "dense.cu", EDITS, ("tsp_dense", "tsp_dense_f64"))}
+    return _libs
+
+
+def _launcher(arm: str, d, xp, y):
+    """One launch of `arm` on class `d`, with the wrapper's arguments
+    (kernels.dense_spmv); the "all" arms get a block per lane group."""
+    lib = arm_libs()[arm]
+    entry = lib.tsp_dense_f64 if xp.dtype == torch.float64 else lib.tsp_dense
+    nblocks = (d.val.shape[0] * d.t_lanes // DENSE_GROUP
+               if arm.startswith("all") else d.groups.shape[0])
+    p = kernels._p
+    args = (p(d.val), p(d.meta), p(d.cmask), p(d.groups), nblocks, p(d.pb),
+            p(d.cw), p(xp), p(y), d.t_lanes, d.k_panels, d.c_batch)
+
+    def run():
+        err = entry(*args, kernels._stream())
+        if err:
+            raise RuntimeError(f"dense arm {arm}: CUDA error {err}")
+    return run
+
+
+def run_arms(d, xp: torch.Tensor, ylen: int,
+             rounds: int = ROUNDS) -> dict:
+    """{arm: {"ms", "min_ms", "max_ms", "err"}} on dense class `d` with
+    the padded x `xp` (CUDA tensors): each arm held to dense_reference
+    (raises past TOL), then timed in turns."""
+    dt = xp.dtype
+    want = reference.dense_reference(
+        d, xp, torch.zeros(ylen, dtype=dt, device=xp.device))
+    bound = TOL[dt] * max(1.0, float(want.abs().max()))
+    out = {}
+    for arm in ARMS:
+        y = torch.zeros(ylen, dtype=dt, device=xp.device)
+        _launcher(arm, d, xp, y)()
+        torch.cuda.synchronize()
+        err = float((y - want).abs().max())
+        if not err <= bound:
+            raise AssertionError(f"dense arm {arm}: max |kernel - plain| "
+                                 f"{err:.3e} > {bound:.3e}")
+        out[arm] = {"err": err}
+    y = torch.zeros(ylen, dtype=dt, device=xp.device)
+    runs = {arm: _launcher(arm, d, xp, y) for arm in ARMS}
+    times = {arm: [] for arm in ARMS}
+    for _ in range(rounds):
+        for arm in ARMS + ARMS[::-1]:
+            times[arm].append(graph_ms(runs[arm]))
+    for arm, ts in times.items():
+        out[arm].update(ms=statistics.median(ts), min_ms=min(ts),
+                        max_ms=max(ts))
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("dense_probes: needs a CUDA device", file=sys.stderr)
+        return 2
+    print(card_line(), flush=True)
+    csr = generate.get_matrix(MATRIX)
+    for dtype in (torch.float32, torch.float64):
+        plan = TileSpMV(csr, dtype=dtype).device_plan()
+        x = np.random.default_rng(0).uniform(-1, 1, csr.n)
+        xp = reference.pad_x(plan, torch.from_numpy(x).cuda())
+        res = run_arms(plan.dense, xp, reference.zero_y(plan, xp).shape[0])
+        first = res[ARMS[0]]["ms"]
+        for arm, r in res.items():
+            print(f"{MATRIX} {str(dtype)[6:].replace('float', 'f')} "
+                  f"{arm}: median {r['ms']:.4f} ms (min {r['min_ms']:.4f}, "
+                  f"max {r['max_ms']:.4f}), {r['ms'] / first:.3f}x first "
+                  f"arm, max abs err {r['err']:.3e}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,9 +26,7 @@ Needs a CUDA device and nvcc: exits 2 without a device.
 """
 from __future__ import annotations
 
-import ctypes
 import statistics
-import subprocess
 import sys
 
 import numpy as np
@@ -48,8 +46,8 @@ _SCAN_TO = ("      if (end && r[u] >= 0) atomicAdd(&win[r[u]], c[u]);\n"
 
 
 def _no_gather(src: str) -> str:
-    return _edit(src, _GATHER,
-                 "        c[u] = v[u] + static_cast<V>(row & 1);\n")
+    return build.edit_once(
+        src, _GATHER, "        c[u] = v[u] + static_cast<V>(row & 1);\n")
 
 
 def _no_scan(src: str) -> str:
@@ -59,44 +57,16 @@ def _no_scan(src: str) -> str:
             "c[0] + c[1] + c[2] + c[3]);\n" + src[j:])
 
 
-def _edit(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"stream.cu no longer holds {old.strip()!r} "
-                           "once: update the probe")
-    return src.replace(old, new)
-
-
 PROBES = {"nogather": _no_gather, "noscan": _no_scan,
           "loads": lambda src: _no_scan(_no_gather(src))}
 
 
 def build_probes() -> dict:
     """{variant: ctypes library}: "base" the port's own library, then
-    each probe built from an edited copy of stream.cu, all nvcc runs
-    started together, into build/cuda/probes/."""
-    src = (build.CSRC_DIR / "stream.cu").read_text()
-    out = build.BUILD_DIR / "probes"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = build.find_nvcc()
-    jobs = {}
-    for name, edit in PROBES.items():
-        cu, so = out / f"stream_{name}.cu", out / f"stream_{name}.so"
-        cu.write_text(edit(src))
-        jobs[name] = (so, subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
-            stderr=subprocess.PIPE, text=True))
-    libs = {"base": build.load()}
-    for name, (so, proc) in jobs.items():
-        err = proc.communicate()[1]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on probe {name}:\n{err}")
-        lib = ctypes.CDLL(str(so))
-        for entry in ("tsp_stream", "tsp_stream_f64"):
-            fn = getattr(lib, entry)
-            fn.argtypes = build.ENTRY_POINTS[entry]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    each probe built from an edited copy of stream.cu
+    (build.build_edited, into build/cuda/probes/)."""
+    return {"base": build.load(), **build.build_edited(
+        "stream.cu", PROBES, ("tsp_stream", "tsp_stream_f64"))}
 
 
 def _call(lib, classes, xp, y):
