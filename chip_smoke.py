@@ -27,9 +27,10 @@ Phases, each fatal on failure:
    holds the wrappers' host time too; the stream kernel also at 1, 2, 4
    and S slabs per block (blocks per class printed). Beside each time,
    the yardstick: the bound (utils.profiling.class_bound: the classes'
-   nonzeros as CSR, bytes over 3.35 TB/s or flops over the peak,
-   whichever is larger) with the share of it the kernel reaches, and
-   the library call: one cuSPARSE product per class
+   nonzeros as CSR, a band class's as values, block columns, x and y
+   with no column per entry; bytes over 3.35 TB/s or flops over the
+   peak, whichever is larger) with the share of it the kernel reaches,
+   and the library call: one cuSPARSE product per class
    (`torch.sparse_csr_tensor` of its nonzeros, reference.class_coo;
    `torch.mv`, or `@` for SpMM), held to the plain version within the
    kernel's bound and timed the same way. The dense kernel's row also
@@ -911,7 +912,7 @@ def main() -> int:
             "sparse": kernels.sparse_spmv, "stream": kernels.stream_spmv}
     plain = {"band": reference.band_reference,
              "dense": reference.dense_reference,
-             "sparse": reference.sparse_reference,
+             "sparse": reference.sparse_rows_reference,
              "stream": reference.stream_rows_reference}
     results = compare_kernels(dev, card, KERNELS, wrap, plain, ops, csrs,
                               launches, per_call)

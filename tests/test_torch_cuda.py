@@ -1,7 +1,9 @@
 """The CUDA class kernels (SpMV and SpMM) and the microbenchmark
 kernels against their plain PyTorch versions on the card (the dense
-kernel also on a class with a one-lane chunk and a full one, and its
-A/B arms), the operator against the float64 golden, and
+kernel also on a class with a one-lane chunk and a full one, the band
+kernel at C = 1 and 3, the W-class kernel at W = 16, 24 and 96 on
+edge-case tiles, each with a non-finite x, and the three kernels' A/B
+arms), the operator against the float64 golden, and
 `profile_engines` and `trace_context` on a CUDA operator.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
@@ -22,8 +24,9 @@ from tilespmv_tpu_torch import TileSpMV
 from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import kernels, reference
 from tilespmv_tpu_torch.ops.cuda import stream_plan as sp
-from tilespmv_tpu_torch.scripts import (dense_probes, microbench_gather,
-                                        microbench_scatter)
+from tilespmv_tpu_torch.scripts import (band_probes, dense_probes,
+                                        microbench_gather,
+                                        microbench_scatter, sparse_probes)
 from tilespmv_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -38,7 +41,7 @@ MATRICES = {
 }
 PAIRS = {"band": (kernels.band_spmv, reference.band_reference),
          "dense": (kernels.dense_spmv, reference.dense_reference),
-         "sparse": (kernels.sparse_spmv, reference.sparse_reference),
+         "sparse": (kernels.sparse_spmv, reference.sparse_rows_reference),
          "stream": (kernels.stream_spmv, reference.stream_rows_reference)}
 MM_PAIRS = {
     "band": ("band_spmm", kernels.band_spmm, reference.band_spmm_reference),
@@ -349,6 +352,156 @@ def test_dense_kernel_takes_zero_columns_times_nonfinite_x(dtype, device):
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     err = float((yk[fin] - yp[fin]).abs().max())
     assert err <= tol * max(1.0, float(yp[fin].abs().max()))
+
+
+# band classes at their edges: C = 1 over three windows, the last holding
+# 10 of its 256 tile rows; C = 3, with lanes whose column blocks cross
+# into the next x panel (loc >> 8 moves on)
+BAND_EDGES = {
+    "band_c1": lambda: generate.banded(256 * 16 * 2 + 160,
+                                       256 * 16 * 2 + 160, 2, seed=13),
+    "band_c3": lambda: generate.get_matrix("banded_medium"),
+}
+# x columns set to Inf and NaN in the non-finite cases: inside the band
+# of both BAND_EDGES matrices
+INF_COL, NAN_COL = 5 * 16 + 3, 300 * 16 + 7
+
+
+def check_band_edges(name, plan) -> None:
+    """The edge BAND_EDGES[name]'s band class stands for, on its plan
+    (tensors on any device)."""
+    bd = plan.band
+    assert bd is not None
+    loc = bd.bloc.reshape(-1).long() & 255
+    if name == "band_c1":
+        assert bd.c_cols == 1 and bd.val.shape[0] == 3
+        assert 0 < plan.tilem - 2 * 256 < 256
+    else:
+        assert bd.c_cols == 3
+        assert bool((loc + bd.c_cols - 1 >= 256).any())
+
+
+def sparse_edges_csr(width: int):
+    """8192 x 8192, 600 tiles of one W-class (W = width in 16, 24, 96):
+    two tiles on each of tile-rows 0..299, a third of them with W - 1
+    entries and the others with 1..W-2 (above the next narrower class's
+    W - 1), each with row 0, 7 or 15 empty. The last chunk holds 88
+    tiles, so its fourth 32-lane group is inert."""
+    rng = np.random.default_rng(width)
+    lo = {16: 1, 24: 16, 96: 64}[width]
+    rows, cols = [], []
+    for i in range(600):
+        tr = i // 2
+        tc = (tr * 37 + (i % 2) * 211) % 512
+        cnt = width - 1 if i % 3 == 0 else lo + i % (width - 1 - lo)
+        empty = (0, 7, 15)[(i // 3) % 3]
+        cells = np.flatnonzero(np.arange(256) // 16 != empty)
+        pick = rng.choice(cells, cnt, replace=False)
+        rows.append(tr * 16 + pick // 16)
+        cols.append(tc * 16 + pick % 16)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return generate.csr_from_coo(8192, 8192, rows, cols,
+                                 rng.standard_normal(rows.size))
+
+
+SPARSE_EDGE_WIDTHS = (16, 24, 96)
+
+
+def check_sparse_edges(width: int, plan):
+    """sparse_edges_csr(width)'s plan (tensors on any device) has one
+    W-class of that width, with a chunk holding an inert 32-lane group
+    beside active lanes, tiles of W - 1 entries, and tiles whose row 0,
+    row 7 or row 15 is empty; returns the class."""
+    assert len(plan.sparses) == 1 and plan.dense is None
+    s = plan.sparses[0]
+    assert s.width == width
+    act = (s.meta[:, 0] >= 0).cpu()
+    inert = ~act.view(act.shape[0], -1, 32).any(dim=2)
+    assert bool((inert.any(dim=1) & act.any(dim=1)).any())
+    rend = reference._sparse_rend(s).cpu()
+    prev = torch.cat([torch.zeros_like(rend[:, :1]), rend[:, :-1]], dim=1)
+    assert bool((rend[:, 15][act] == width - 1).any())
+    for r in (0, 7, 15):
+        assert bool(((rend[:, r] == prev[:, r]) & act).any()), r
+    return s
+
+
+def _agree(yk, yp, tol) -> None:
+    """NaN for NaN and Inf for Inf (sign included), the finite entries
+    within tol * max(1, max|plain|)."""
+    assert torch.equal(yk.isnan(), yp.isnan())
+    assert torch.equal(yk.isinf() & (yk > 0), yp.isinf() & (yp > 0))
+    assert torch.equal(yk.isinf() & (yk < 0), yp.isinf() & (yp < 0))
+    fin = yp.isfinite()
+    err = float((yk[fin] - yp[fin]).abs().max())
+    assert err <= tol * max(1.0, float(yp[fin].abs().max())), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(BAND_EDGES))
+def test_band_kernel_edges(name, dtype, device):
+    """band.cu at C = 1 (a last window partly inside the matrix) and
+    C = 3 (lanes crossing a panel): one launch, band_reference within
+    1e-5 (f32) or 1e-12 (f64) of max(1, max|plain|); with an Inf and a
+    NaN in x, NaN for NaN and Inf for Inf (every product is taken, zeros
+    included); then every A/B arm of scripts/band_probes."""
+    csr = BAND_EDGES[name]()
+    plan = TileSpMV(csr, device=device, dtype=dtype).device_plan()
+    check_band_edges(name, plan)
+    kname = "band" + ("_f64" if dtype == torch.float64 else "")
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    x = np.random.default_rng(6).uniform(-1, 1, csr.n)
+    xb = x.copy()
+    xb[INF_COL], xb[NAN_COL] = np.inf, np.nan
+    for xh in (x, xb):
+        xp = reference.pad_x(plan, torch.from_numpy(xh).to(device, dtype))
+        ylen = reference.zero_y(plan, xp).shape[0]
+        before = kernels.launch_counts()[kname]
+        yk = kernels.band_spmv(plan.band, xp, torch.zeros(
+            ylen, dtype=dtype, device=device))
+        assert kernels.launch_counts()[kname] == before + 1
+        yp = reference.band_reference(plan.band, xp, torch.zeros(
+            ylen, dtype=dtype, device=device))
+        torch.cuda.synchronize()
+        assert bool(yp.isfinite().all()) == (xh is x)
+        _agree(yk, yp, tol)
+    xp = reference.pad_x(plan, torch.from_numpy(x).to(device, dtype))
+    arms = band_probes.run_arms(plan.band, xp, ylen, rounds=1)
+    assert list(arms) == list(band_probes.ARMS)
+    assert all(a["ms"] > 0 for a in arms.values())
+
+
+@pytest.mark.parametrize("width", SPARSE_EDGE_WIDTHS)
+def test_sparse_kernel_edges(width, device):
+    """sparse.cu on a class with an inert 32-lane group, tiles of W - 1
+    entries and tiles with row 0, 7 or 15 empty: one launch,
+    sparse_rows_reference and sparse_reference within 1e-5 of
+    max(1, max|plain|); with an Inf in x at the column of a tile's first
+    entry, NaN for NaN and Inf for Inf against sparse_rows_reference;
+    then every A/B arm of scripts/sparse_probes."""
+    csr = sparse_edges_csr(width)
+    plan = TileSpMV(csr, device=device).device_plan()
+    s = check_sparse_edges(width, plan)
+    x = np.random.default_rng(7).uniform(-1, 1, csr.n).astype(np.float32)
+    xb = x.copy()
+    xb[reference.class_coo(s)[1][0]] = np.inf
+    for xh in (x, xb):
+        xp = reference.pad_x(plan, torch.from_numpy(xh).to(device))
+        ylen = reference.zero_y(plan, xp).shape[0]
+        before = kernels.launch_counts()["sparse"]
+        yk = kernels.sparse_spmv(s, xp, torch.zeros(ylen, device=device))
+        assert kernels.launch_counts()["sparse"] == before + 1
+        plains = (reference.sparse_rows_reference,) + (
+            (reference.sparse_reference,) if xh is x else ())
+        for plain in plains:
+            yp = plain(s, xp, torch.zeros(ylen, device=device))
+            torch.cuda.synchronize()
+            assert bool(yp.isinf().any()) == (xh is xb)
+            _agree(yk, yp, 1e-5)
+    xp = reference.pad_x(plan, torch.from_numpy(x).to(device))
+    arms = sparse_probes.run_arms([s], xp, ylen, rounds=1)
+    assert list(arms) == list(sparse_probes.ARMS)
+    assert all(a["ms"] > 0 for a in arms.values())
 
 
 def _mb_check(name, run, plain) -> None:

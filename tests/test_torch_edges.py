@@ -1,0 +1,102 @@
+"""The band and W-class edge cases of tests/test_torch_cuda.py, on the
+CPU: each matrix has the edge its card test stands for (band C = 1 with
+a last window partly inside the matrix, C = 3 with lanes whose column
+blocks cross an x panel; W-classes of width 16, 24 and 96 with an inert
+32-lane group, tiles of W - 1 entries and tiles whose row 0, 7 or 15 is
+empty) on the port's plan, which is bit-equal to the reference's, and
+there the plain versions hold to tilespmv_tpu's Pallas kernels in
+interpret mode: the band class with an Inf and a NaN in x too (NaN for
+NaN, Inf for Inf), the W-class by sparse_rows_reference (sparse.cu's
+walk) and sparse_reference, also through the wrapper on CPU tensors.
+
+Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) over the finite
+entries (the f32 summation order differs)."""
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from tilespmv_tpu.core.convert import tile_create as j_tile_create
+from tilespmv_tpu.io.mmio import CSRMatrix as JCSR
+from tilespmv_tpu.ops.pallas import kernels as jk
+from tilespmv_tpu.ops.pallas.lane_plan import build_lane_plan as j_build
+from tilespmv_tpu_torch.core.convert import tile_create
+from tilespmv_tpu_torch.interop import lane_plan_from_jax
+from tilespmv_tpu_torch.ops.cuda import kernels, reference
+from tilespmv_tpu_torch.ops.cuda.lane_plan import build_lane_plan
+
+from test_torch_cuda import (BAND_EDGES, INF_COL, NAN_COL,
+                             SPARSE_EDGE_WIDTHS, check_band_edges,
+                             check_sparse_edges, sparse_edges_csr)
+from test_torch_plan import assert_same
+
+TOL = 1e-5
+
+
+def plans(csr):
+    """(the reference's plan, the port's plan as CPU tensors), the port's
+    bit-equal to the reference's carried across."""
+    jplan = j_build(j_tile_create(JCSR(csr.shape, csr.indptr, csr.indices,
+                                       csr.data)))
+    tplan = build_lane_plan(tile_create(csr))
+    assert_same(lane_plan_from_jax(jplan), tplan)
+    return jplan, reference.to_torch(tplan)
+
+
+def run(fn, cls, plan, x):
+    xp = reference.pad_x(plan, torch.from_numpy(x))
+    return fn(cls, xp, reference.zero_y(plan, xp)).numpy()
+
+
+def flat(y2dt, length):
+    """(16, n_windows*256) class output -> flat y rows."""
+    out = np.zeros(length, np.float32)
+    f = np.asarray(y2dt).T.reshape(-1)
+    out[: f.size] = f
+    return out
+
+
+def agree(got, want):
+    """NaN for NaN, Inf for Inf (sign included), finite within TOL."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    err = float(np.max(np.abs(got[fin] - want[fin])))
+    assert err <= TOL * max(1.0, float(np.max(np.abs(want[fin])))), err
+
+
+@pytest.mark.parametrize("name", sorted(BAND_EDGES))
+def test_band_edges_match_interpret(name):
+    csr = BAND_EDGES[name]()
+    jplan, plan = plans(csr)
+    check_band_edges(name, plan)
+    x = np.random.default_rng(6).uniform(-1, 1, csr.n).astype(np.float32)
+    xb = x.copy()
+    xb[INF_COL], xb[NAN_COL] = np.inf, np.nan
+    for xh in (x, xb):
+        got = run(reference.band_reference, plan.band, plan, xh)
+        assert np.isfinite(got).all() == (xh is x)
+        want = flat(jk.band_class_call(
+            jplan.band, jk.x_to_panels(jplan, jnp.asarray(xh)),
+            jplan.n_windows, interpret=True), got.size)
+        agree(got, want)
+
+
+@pytest.mark.parametrize("width", SPARSE_EDGE_WIDTHS)
+def test_sparse_edges_match_interpret(width):
+    csr = sparse_edges_csr(width)
+    jplan, plan = plans(csr)
+    s = check_sparse_edges(width, plan)
+    x = np.random.default_rng(7).uniform(-1, 1, csr.n).astype(np.float32)
+    got = run(reference.sparse_rows_reference, s, plan, x)
+    want = flat(jk.sparse_class_call(
+        jplan.sparses[0], jk.x_to_panels(jplan, jnp.asarray(x)),
+        jplan.n_windows, interpret=True), got.size)
+    agree(got, want)
+    agree(got, run(reference.sparse_reference, s, plan, x))
+    # the wrapper runs sparse.cu's plain version on CPU tensors
+    before = kernels.launch_counts()
+    np.testing.assert_array_equal(run(kernels.sparse_spmv, s, plan, x), got)
+    assert kernels.launch_counts() == before

@@ -114,3 +114,44 @@ def test_sparse_reference_matches_interpret(name):
         want = window_flat(jk.sparse_class_call(
             js, panels, jplan.n_windows, interpret=True), y_len(tplan))
         close(run_torch(ref.sparse_reference, ts, tplan, x), want)
+
+
+@pytest.mark.parametrize("name", ["w16", "w24", "w96"])
+def test_sparse_rows_reference_matches_interpret(name):
+    """sparse.cu's walk (each row sums its own slots) against the Pallas
+    kernel in interpret mode and against sparse_reference with a finite
+    x. With an Inf in x at the column of a tile's first entry it gives
+    the class's CSR product (class_coo, in float64): Inf in the rows that
+    read it, no NaN. The Pallas kernel and sparse_reference take row sums
+    as differences of a slot prefix over every slot (the reserved zero
+    and the padding read column 0 as 0 * x), so Inf - Inf and 0 * Inf put
+    NaN in rows whose CSR sum is finite (a deliberate difference,
+    ROADMAP.md C)."""
+    jplan, tplan = plans(MATRICES[name]())
+    x = x_for(jplan.n)
+    panels = jk.x_to_panels(jplan, jnp.asarray(x))
+    for js, ts in zip(jplan.sparses, tplan.sparses):
+        want = window_flat(jk.sparse_class_call(
+            js, panels, jplan.n_windows, interpret=True), y_len(tplan))
+        got = run_torch(ref.sparse_rows_reference, ts, tplan, x)
+        close(got, want)
+        close(got, run_torch(ref.sparse_reference, ts, tplan, x))
+
+    js, ts = jplan.sparses[0], tplan.sparses[0]
+    row, col, val = ref.class_coo(ts)
+    x[col[0]] = np.inf
+    golden = np.zeros(y_len(tplan))
+    np.add.at(golden, row, val.astype(np.float64) * x[col])
+    got = run_torch(ref.sparse_rows_reference, ts, tplan, x)
+    assert np.isinf(golden).any() and not np.isnan(golden).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(golden))
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(golden))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(golden))
+    fin = np.isfinite(golden)
+    close(got[fin], golden[fin])
+    prefix = run_torch(ref.sparse_reference, ts, tplan, x)
+    pallas = window_flat(jk.sparse_class_call(
+        js, jk.x_to_panels(jplan, jnp.asarray(x)), jplan.n_windows,
+        interpret=True), y_len(tplan))
+    for spread in (prefix, pallas):
+        assert np.isnan(spread[fin]).any()

@@ -9,6 +9,7 @@ port's seeded inputs. Tolerance: max |plain - Pallas| <= 1e-5 *
 max(1, max|Pallas|) (the plain versions sum in another order)."""
 import importlib.util
 import pathlib
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,8 @@ from jax.experimental.pallas import tpu as pltpu
 from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.scripts import microbench_gather as t_gather
 from tilespmv_tpu_torch.scripts import microbench_scatter as t_scatter
-from tilespmv_tpu_torch.scripts import dense_probes, stream_probes
+from tilespmv_tpu_torch.scripts import (band_probes, dense_probes,
+                                        sparse_probes, stream_probes)
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 TOL = 1e-5
@@ -111,7 +113,8 @@ def test_microbench_wrappers_refuse_bad_inputs():
 
 @pytest.mark.parametrize("script,argv", [
     (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"]),
-    (stream_probes, None), (dense_probes, None)])
+    (stream_probes, None), (dense_probes, None), (band_probes, None),
+    (sparse_probes, None)])
 def test_scripts_exit_nonzero_without_cuda(script, argv, monkeypatch,
                                            capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -151,3 +154,109 @@ def test_dense_probes_edit_the_kernel_source():
     assert mask not in out["groups"] and table in out["groups"]
     assert mask in out["all+mask"] and table not in out["all+mask"]
     assert mask not in out["all"] and table not in out["all"]
+
+
+def test_band_probes_edit_the_kernel_source():
+    """Each copy of scripts/band_probes.py is band.cu as it stands with
+    kRows set in both dtypes (rows1, rows2, rows4), or with the staging
+    dropped and x read per lane (lane_x) or from one block (one_x)."""
+    src = (build.CSRC_DIR / "band.cu").read_text()
+    assert "constexpr int kRows = sizeof(V) == 8 ? " in src
+    out = {arm: edit(src) for arm, edit in band_probes.EDITS.items()}
+    assert band_probes.ARMS == ("kept", "rows1", "rows2", "rows4",
+                                "lane_x", "one_x")
+    for arm, o in out.items():
+        assert o != src and o.count("{") == o.count("}"), arm
+    for r in (1, 2, 4):
+        assert f"constexpr int kRows = {r};" in out[f"rows{r}"]
+        assert "sizeof(V) == 8 ?" not in out[f"rows{r}"]
+    stage = "const int nstage = c_cols * kLanes * kB;"
+    for arm in ("lane_x", "one_x"):
+        assert stage not in out[arm] and "const V* xl = xs" not in out[arm]
+        assert "const int nstage = 0;" in out[arm]
+    assert "pbw[loc >> 8]" in out["lane_x"].split("const V* xl =")[-1]
+    assert "pbw[0]" in out["one_x"]
+    assert band_probes.TIMED_ONLY == ("one_x",)
+
+
+def test_sparse_probes_edit_the_kernel_source():
+    """Each copy of scripts/sparse_probes.py is sparse.cu as it stands
+    with kSlots set to 8, 16 or 32 slots a thread, one atomic per (tile,
+    row) (tile_atomics), or with a part of its work taken out (empty,
+    nox, noflush: timed only); class_tiles counts a class's tiles and
+    tile rows."""
+    src = (build.CSRC_DIR / "sparse.cu").read_text()
+    out = {arm: edit(src) for arm, edit in sparse_probes.EDITS.items()}
+    assert sparse_probes.ARMS == ("kept", "slots8", "slots16", "slots32",
+                                  "tile_atomics", "empty", "nox",
+                                  "noflush")
+    assert sparse_probes.TIMED_ONLY == ("empty", "nox", "noflush")
+    for arm, o in out.items():
+        assert o.count("{") == o.count("}"), arm
+    for k in (8, 16, 32):
+        assert out[f"slots{k}"].count("constexpr int kSlots = ") == 1
+        assert f"constexpr int kSlots = {k};" in out[f"slots{k}"]
+    assert "[kLanes * kPad];\n  return;\n" in out["empty"]
+    assert "if (false) {\n    int panel" in out["nox"]
+    assert "atomicAdd(yw" in out["noflush"]
+    assert "if (false && (smask[lane]" in out["noflush"]
+    assert "__match_any_sync(" in src
+    assert "__match_any_sync(" not in out["tile_atomics"]
+    assert "const int lead = l;" in out["tile_atomics"]
+    # class_tiles: two steps of one chunk, tile rows 3, 3, 5 and 256 + 3
+    meta = torch.full((2, 9, 128), -1, dtype=torch.int32)
+    meta[0, 0, :3], meta[0, 1, :3] = 0, torch.tensor([3, 3, 5])
+    meta[1, 0, 0], meta[1, 1, 0] = 0, 3
+    s = SimpleNamespace(val=torch.zeros(2, 24, 128), meta=meta, c_batch=1,
+                        cw=torch.tensor([0, 1]))
+    assert sparse_probes.class_tiles(s) == {"tiles": 4, "tile_rows": 3,
+                                            "most": 2}
+
+
+def test_edit_const_sets_the_one_definition():
+    """build.edit_const rewrites `constexpr int <name> = ...;` whatever it
+    holds, and refuses a source that defines the name never or twice."""
+    src = ("template <typename V>\nconstexpr int kRows = sizeof(V) == 8 ? "
+           "1 : 2;\nconstexpr int kRowsMax = 4;\n")
+    got = build.edit_const(src, "kRows", 4)
+    assert got == ("template <typename V>\nconstexpr int kRows = 4;\n"
+                   "constexpr int kRowsMax = 4;\n")
+    with pytest.raises(RuntimeError):
+        build.edit_const(src, "kSlots", 8)
+    with pytest.raises(RuntimeError):
+        build.edit_const(src + src, "kRows", 4)
+
+
+def test_ab_arms_checks_then_times_in_turns(monkeypatch):
+    """utils.profiling.ab_arms on the CPU with the card's calls stubbed:
+    every arm but the timed-only ones is held to the plain version's y
+    (an arm past the tolerance raises, naming it), then the arms are
+    timed forward then backward, `rounds` times, each its median."""
+    from tilespmv_tpu_torch.utils import profiling
+    want = torch.tensor([1.0, 2.0, 3.0])
+    adds = {"a": want, "b": want + 1e-7, "wrong": -want, "bad": want + 1}
+    timed = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def graph_ms(fn):
+        fn()
+        timed.append(fn.arm)
+        return {"a": 1.0, "b": 2.0, "wrong": 0.5}[fn.arm] + len(timed)
+    monkeypatch.setattr(profiling, "graph_ms", graph_ms)
+
+    def make_run(arm, y):
+        def run():
+            y.add_(adds[arm])
+        run.arm = arm
+        return run
+    out = profiling.ab_arms(make_run, ("a", "b", "wrong"), want, 1e-5,
+                            timed_only=("wrong",), rounds=2)
+    assert timed == ["a", "b", "wrong", "wrong", "b", "a"] * 2
+    assert out["a"]["err"] == 0.0 and out["b"]["err"] < 1e-6
+    assert out["wrong"]["err"] is None
+    # a: 1 + {1, 6, 7, 12}; b: 2 + {2, 5, 8, 11}
+    assert out["a"] == {"err": 0.0, "ms": 7.5, "min_ms": 2.0,
+                        "max_ms": 13.0}
+    assert (out["b"]["min_ms"], out["b"]["max_ms"]) == (4.0, 13.0)
+    with pytest.raises(AssertionError, match="probe arm bad"):
+        profiling.ab_arms(make_run, ("a", "bad"), want, 1e-5, name="probe")

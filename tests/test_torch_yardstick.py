@@ -3,7 +3,8 @@ class's nonzeros, so that a plan's classes and its residual together
 rebuild the matrix exactly, summed as a sparse matrix
 (tests/test_torch_plan.py's archetypes, which between them give every
 class kind, and a HYB matrix with a residual; f32 and f64 plans), and
-utils.profiling's bound counts the bytes of a hand-counted class."""
+utils.profiling's bound counts the bytes of a hand-counted class, and a
+band class's with no column per entry."""
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -107,3 +108,27 @@ def test_bound_counts_a_hand_counted_class(dtype, k, want):
     ops = profiling.roofline(1, 10 ** 9, 4)
     assert ops["bound_by"] == "operations"
     assert ops["bound_ms"] == pytest.approx(10 ** 9 / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("k", [1, 8])
+def test_bound_prices_a_band_class_without_column_indices(dtype, k):
+    """A band class's columns follow from each tile row's block column:
+    its bound counts the nonzeros' values, its bloc, pb and cw arrays,
+    and x and y once, not the int32 column and row pointer of a CSR, and
+    none of the brick's zero slots."""
+    plan, _ = _plan_and_csr("row_windows", dtype)   # 3 windows, C = 1
+    band = plan.band
+    row, col, val = reference.class_coo(band)
+    vbytes = np.dtype(DTYPES[dtype]).itemsize
+    nrows, ncols = np.unique(row).size, np.unique(col).size
+    index = band.bloc.nbytes + band.pb.nbytes + band.cw.nbytes
+    want = (val.size * vbytes + index + vbytes * (nrows + ncols) * k)
+    got = profiling.class_bound([band], k=k)
+    assert got["bytes"] == want < band.val.nbytes
+    assert got["flops"] == 2 * val.size * k
+    assert got == profiling.band_bound(val.size, nrows, ncols, vbytes,
+                                       index, k)
+    csr = profiling.csr_bound(val.size, nrows, ncols, vbytes, k)
+    assert csr["bytes"] - got["bytes"] == 4 * val.size + 4 * (nrows + 1) \
+        - index

@@ -6,13 +6,14 @@ plain C interface, in the repo's git-ignored `build/cuda/` directory, at
 first use; ctypes loads it. Nothing here runs at import. A missing nvcc
 or a failed build raises: there is no fallback to the plain versions on
 a CUDA device. The probe scripts also build edited copies of a source
-(`build_edited`), which the port never loads.
+(`build_edited`, `arm_libs`), which the port never loads.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -118,6 +119,30 @@ def edit_once(src: str, old: str, new: str) -> str:
         raise RuntimeError(f"the kernel source no longer holds "
                            f"{old.strip()!r} once: update the probe")
     return src.replace(old, new)
+
+
+def edit_const(src: str, name: str, value) -> str:
+    """`src` with its one definition `constexpr int <name> = ...;` set to
+    `value`, whatever the source sets it to now; raises where there is
+    not exactly one."""
+    pat = re.compile(rf"constexpr int {name} = [^;]*;")
+    if len(pat.findall(src)) != 1:
+        raise RuntimeError(f"the kernel source no longer defines {name} "
+                           "once: update the probe")
+    return pat.sub(f"constexpr int {name} = {value};", src)
+
+
+_arms: dict = {}
+
+
+def arm_libs(source: str, kept: str, edits: dict, entries) -> dict:
+    """{arm: ctypes library} of a probe script's A/B of csrc/`source`:
+    the port's own library as arm `kept`, and build_edited's copies,
+    built on the first call of the process for that source."""
+    if source not in _arms:
+        _arms[source] = {kept: load(),
+                         **build_edited(source, edits, entries)}
+    return _arms[source]
 
 
 def build_edited(source: str, edits: dict, entries) -> dict:

@@ -36,9 +36,9 @@ from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         band_reference, band_spmm_reference,
                         dense_reference, dense_spmm_reference,
                         microbench_gather_reference,
-                        microbench_scatter_reference, sparse_reference,
-                        sparse_spmm_reference, stream2_reference,
-                        stream_rows_reference)
+                        microbench_scatter_reference,
+                        sparse_rows_reference, sparse_spmm_reference,
+                        stream2_reference, stream_rows_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
@@ -278,11 +278,12 @@ def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class: packed sparse-entry tiles, routed by meta[LROW]."""
+    """W-class: packed sparse-entry tiles, routed by meta[LROW]; each
+    row sums its own slots (sparse_rows_reference)."""
     _check_xy(x, y)
     nch = _check_sparse(s, y.device)
     if not _use_kernel(y):
-        return sparse_reference(s, x, y)
+        return sparse_rows_reference(s, x, y)
     err = build.load().tsp_sparse(
         _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
         nch, s.width, s.t_lanes, s.k_panels, s.c_batch, _stream())

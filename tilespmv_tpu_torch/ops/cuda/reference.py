@@ -147,25 +147,71 @@ def dense_active_reference(d, x: torch.Tensor,
     return y.index_add_(0, rows[act].reshape(-1), yc[act].reshape(-1))
 
 
+def _sparse_rend(s) -> torch.Tensor:
+    """(nch, 16, T) row ends of a W-class: rend[r] = last slot of the
+    tile's rows <= r (byte r % 4 of meta row 2 + W/8 + r // 4)."""
+    r = torch.arange(_B, device=s.meta.device)
+    rwords = s.meta[:, 2 + s.width // 8 + r // 4]
+    return (rwords >> ((r % 4) * 8)[None, :, None]) & 255
+
+
+def _sparse_cols(s, slot: torch.Tensor) -> torch.Tensor:
+    """(nch, len(slot), T) 4-bit column of each slot (nibble s % 8 of
+    meta row 2 + s // 8)."""
+    words = s.meta[:, 2 + slot // 8]
+    return (words >> ((slot % 8) * 4)[None, :, None]) & 15
+
+
 def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class: contrib[c, s, t] = val * xg[col(s)], an inclusive prefix
-    over slots, row r's sum = cs[rend[r]] - cs[rend[r-1]] (slot 0 is a
-    reserved zero, so rend = 0 reads 0)."""
+    """W-class as the Pallas kernel forms it: contrib[c, s, t] = val *
+    xg[col(s)], an inclusive prefix over slots, row r's sum = cs[rend[r]]
+    - cs[rend[r-1]] (slot 0 is a reserved zero, so rend = 0 reads 0).
+    sparse_spmm.cu's plain version; sparse.cu's is sparse_rows_reference.
+    The two differ only where x is not finite: the prefix takes every
+    slot (the reserved zero and the padding as 0 * x[column 0]) and
+    carries Inf - Inf into later rows, so NaN reaches rows whose CSR sum
+    is finite."""
     nch, W, T = s.val.shape
     dev = y.device
     step = torch.arange(nch, device=dev) // s.c_batch
     xloc = s.meta[:, 0].long()
     pb = s.pb.view(-1, s.k_panels).long()[step]
     xg = _x_blocks(pb, xloc.clamp(min=0), x)              # (nch, 16, T)
-    slot = torch.arange(W, device=dev)
-    words = s.meta[:, 2 + slot // 8]                      # (nch, W, T)
-    col = (words >> ((slot % 8) * 4)[None, :, None]) & 15
+    col = _sparse_cols(s, torch.arange(W, device=dev))    # (nch, W, T)
     cs = torch.cumsum(_rhs(s.val, x) * _take(xg, 1, col.long()), dim=1)
-    r = torch.arange(_B, device=dev)
-    rwords = s.meta[:, 2 + W // 8 + r // 4]               # (nch, 16, T)
-    rend = (rwords >> ((r % 4) * 8)[None, :, None]) & 255
-    g = _take(cs, 1, rend.long())
+    g = _take(cs, 1, _sparse_rend(s).long())
     yc = g - torch.cat([torch.zeros_like(g[:, :1]), g[:, :-1]], dim=1)
+    return _route(yc, s.cw.long()[step], s.meta[:, 1].long(), xloc >= 0, y)
+
+
+def sparse_rows_reference(s, x: torch.Tensor,
+                          y: torch.Tensor) -> torch.Tensor:
+    """W-class as sparse.cu walks it (sparse_spmv's plain version): slot
+    s >= 1 of an active tile lies in row r = #{r' : rend[r'] < s} and
+    adds val * x[tilecol*16 + col(s)] into the tile's row-r sum; slots
+    past rend[15] hold nothing; the tiles' row sums are then added into
+    y[(cw*256 + lrow)*16 + r]. Each row sums its own slots, so a
+    non-finite x reaches only the rows whose entries read it, as in the
+    CSR product."""
+    nch, W, T = s.val.shape
+    dev = y.device
+    step = torch.arange(nch, device=dev) // s.c_batch
+    xloc = s.meta[:, 0].long()
+    pb = s.pb.view(-1, s.k_panels).long()[step]
+    base = _x_cols(pb, xloc.clamp(min=0))[:, :1]          # (nch, 1, T)
+    slot = torch.arange(W, device=dev)
+    rend = _sparse_rend(s).long()
+    row = torch.searchsorted(rend.transpose(1, 2).contiguous(),
+                             slot.expand(nch, T, W).contiguous())
+    keep = ((xloc >= 0)[:, None, :] & (slot >= 1)[None, :, None]
+            & (slot[None, :, None] <= rend[:, -1:]))      # (nch, W, T)
+    cell = ((torch.arange(nch, device=dev)[:, None, None] * _B
+             + row.transpose(1, 2)) * T + torch.arange(T, device=dev))
+    cols = base + _sparse_cols(s, slot).long()
+    yc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=s.val.dtype,
+                     device=dev)
+    yc.view((-1,) + x.shape[1:]).index_add_(
+        0, cell[keep], _rhs(s.val[keep], x) * x[cols[keep]])
     return _route(yc, s.cw.long()[step], s.meta[:, 1].long(), xloc >= 0, y)
 
 
@@ -284,12 +330,8 @@ def _sparse_coo(s):
     pb = s.pb.view(-1, s.k_panels).long()[step]
     tc = _x_cols(pb, xloc.clamp(min=0))[:, 0]             # (nch, T)
     slot = torch.arange(W)
-    words = s.meta[:, 2 + slot // 8].long()               # (nch, W, T)
-    cols = tc[:, None, :] + ((words >> ((slot % 8) * 4)[None, :, None])
-                             & 15)
-    r = torch.arange(_B)
-    rwords = s.meta[:, 2 + W // 8 + r // 4].long()        # (nch, 16, T)
-    rend = (rwords >> ((r % 4) * 8)[None, :, None]) & 255
+    cols = tc[:, None, :] + _sparse_cols(s, slot).long()  # (nch, W, T)
+    rend = _sparse_rend(s).long()                         # (nch, 16, T)
     # slot t of a lane belongs to the first row r with rend[r] >= t
     ge = rend[:, :, None, :] >= slot[None, None, :, None]  # (nch, r, W, T)
     rin = ge.int().argmax(dim=1)                          # (nch, W, T)
@@ -429,7 +471,7 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
 def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x with the plain PyTorch class versions (any device)."""
     return assemble(plan, x, band_reference, dense_reference,
-                    sparse_reference, stream_rows_reference)
+                    sparse_rows_reference, stream_rows_reference)
 
 
 def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:

@@ -16,13 +16,13 @@ as four arms:
                read), a block with no active tile exiting whole;
   all:         both edits.
 
-Every arm computes the same y. Times each on the dense class of
-mixed_large (io/generate.py CORPUS, full size) in f32 and f64: the
-device time of one launch (utils.profiling.graph_ms), the arms in turns,
-forward then backward, ROUNDS times, after each arm is held to
-reference.dense_reference within 1e-5 (f32) or 1e-12 (f64) of
-max(1, max|plain|). Prints the card's name and power limit, then per
-dtype and arm:
+Every arm computes the same y. Runs them on the dense class of
+mixed_large (io/generate.py CORPUS, full size) in f32 and f64
+(utils.profiling.ab_arms: each arm held to reference.dense_reference
+within 1e-5 (f32) or 1e-12 (f64) of max(1, max|plain|), then the device
+time of one launch by graph_ms, the arms in turns, forward then
+backward, ROUNDS times). Prints the card's name and power limit, then
+per dtype and arm:
 
     mixed_large f64 groups+mask: median ... ms (min ..., max ...), ...x first arm, max abs err ...
 
@@ -30,7 +30,6 @@ Needs a CUDA device and nvcc: exits 2 without a device.
 """
 from __future__ import annotations
 
-import statistics
 import sys
 
 import numpy as np
@@ -40,7 +39,7 @@ from ..io import generate
 from ..ops.cuda import build, kernels, reference
 from ..ops.cuda.lane_plan import DENSE_GROUP
 from ..ops.spmv import TileSpMV
-from ..utils.profiling import card_line, graph_ms
+from ..utils.profiling import ab_arms, card_line
 
 MATRIX = "mixed_large"
 ROUNDS = 2
@@ -64,23 +63,13 @@ def _every_group(src: str) -> str:
 EDITS = {"groups": _no_mask, "all+mask": _every_group,
          "all": lambda src: _every_group(_no_mask(src))}
 ARMS = ("groups+mask", *EDITS)
-_libs = None
-
-
-def arm_libs() -> dict:
-    """{arm: ctypes library}: the port's own for groups+mask, the edited
-    copies built on the first call of the process."""
-    global _libs
-    if _libs is None:
-        _libs = {ARMS[0]: build.load(), **build.build_edited(
-            "dense.cu", EDITS, ("tsp_dense", "tsp_dense_f64"))}
-    return _libs
 
 
 def _launcher(arm: str, d, xp, y):
     """One launch of `arm` on class `d`, with the wrapper's arguments
     (kernels.dense_spmv); the "all" arms get a block per lane group."""
-    lib = arm_libs()[arm]
+    lib = build.arm_libs("dense.cu", ARMS[0], EDITS,
+                         ("tsp_dense", "tsp_dense_f64"))[arm]
     entry = lib.tsp_dense_f64 if xp.dtype == torch.float64 else lib.tsp_dense
     nblocks = (d.val.shape[0] * d.t_lanes // DENSE_GROUP
                if arm.startswith("all") else d.groups.shape[0])
@@ -97,33 +86,12 @@ def _launcher(arm: str, d, xp, y):
 
 def run_arms(d, xp: torch.Tensor, ylen: int,
              rounds: int = ROUNDS) -> dict:
-    """{arm: {"ms", "min_ms", "max_ms", "err"}} on dense class `d` with
-    the padded x `xp` (CUDA tensors): each arm held to dense_reference
-    (raises past TOL), then timed in turns."""
-    dt = xp.dtype
+    """utils.profiling.ab_arms of ARMS on dense class `d` with the padded
+    x `xp` (CUDA tensors), against dense_reference."""
     want = reference.dense_reference(
-        d, xp, torch.zeros(ylen, dtype=dt, device=xp.device))
-    bound = TOL[dt] * max(1.0, float(want.abs().max()))
-    out = {}
-    for arm in ARMS:
-        y = torch.zeros(ylen, dtype=dt, device=xp.device)
-        _launcher(arm, d, xp, y)()
-        torch.cuda.synchronize()
-        err = float((y - want).abs().max())
-        if not err <= bound:
-            raise AssertionError(f"dense arm {arm}: max |kernel - plain| "
-                                 f"{err:.3e} > {bound:.3e}")
-        out[arm] = {"err": err}
-    y = torch.zeros(ylen, dtype=dt, device=xp.device)
-    runs = {arm: _launcher(arm, d, xp, y) for arm in ARMS}
-    times = {arm: [] for arm in ARMS}
-    for _ in range(rounds):
-        for arm in ARMS + ARMS[::-1]:
-            times[arm].append(graph_ms(runs[arm]))
-    for arm, ts in times.items():
-        out[arm].update(ms=statistics.median(ts), min_ms=min(ts),
-                        max_ms=max(ts))
-    return out
+        d, xp, torch.zeros(ylen, dtype=xp.dtype, device=xp.device))
+    return ab_arms(lambda arm, y: _launcher(arm, d, xp, y), ARMS, want,
+                   TOL[xp.dtype], (), rounds, "dense")
 
 
 def main() -> int:

@@ -5,9 +5,10 @@ reference's per-format cost instrumentation (`DEBUG_FORMATCOST` /
 `formatprofile`, reference main.cu:12 and tilespmv_cuda.h:102-110,
 525-533): `profile_engines` times each execution-plan class on its own,
 so the cost of every class is visible, and `trace_context` records a
-`torch.profiler` trace for deep dives. `csr_bound` and `class_bound`
-give the least time the card could take for a class's work, the
-yardstick its kernel's time is read against.
+`torch.profiler` trace for deep dives. `csr_bound`, `band_bound` and
+`class_bound` give the least time the card could take for a class's
+work, the yardstick its kernel's time is read against; `graph_ms` and
+`ab_arms` time kernels and the probe scripts' arms on the card.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import kernels, reference
+from ..ops.cuda.lane_plan import BandChunks
 
 
 def _timed(fn, *args, reps: int = 3, k1: int = 25, k2: int = 425) -> float:
@@ -121,18 +123,35 @@ def roofline(nbytes: float, flops: float, vbytes: int) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def band_bound(nnz: int, rows: int, cols: int, vbytes: int,
+               index_bytes: int, k: int = 1) -> dict:
+    """Least time of Y = A @ X over k right-hand sides for a banded A:
+    its columns follow from each tile row's first block column, so no
+    index per entry is read. bytes = nnz*vbytes + index_bytes (the
+    block columns and panel ids) + vbytes*(cols + rows)*k, flops =
+    2*nnz*k; roofline's dict."""
+    return roofline(nnz * vbytes + index_bytes + vbytes * (cols + rows) * k,
+                    2 * nnz * k, vbytes)
+
+
 def class_bound(classes, k: int = 1) -> dict:
-    """csr_bound summed over plan classes of one value dtype
-    (reference.class_coo's nonzeros; each class its own CSR, as each is
-    its own launch)."""
+    """The bound summed over plan classes of one value dtype
+    (reference.class_coo's nonzeros; each class its own launch): a band
+    class by band_bound over its bloc, pb and cw, every other class by
+    csr_bound as its own CSR."""
     parts, vbytes = [], 4
     for cls in classes:
         row, col, val = reference.class_coo(cls)
         vbytes = val.dtype.itemsize
-        parts.append(csr_bound(val.size, np.unique(row).size,
-                               np.unique(col).size, vbytes, k))
+        shape = (val.size, np.unique(row).size, np.unique(col).size, vbytes)
+        if isinstance(cls, BandChunks):
+            index = _nbytes(*(torch.as_tensor(a)
+                              for a in (cls.bloc, cls.pb, cls.cw)))
+            parts.append(band_bound(*shape, index, k))
+        else:
+            parts.append(csr_bound(*shape, k))
     return roofline(sum(p["bytes"] for p in parts),
-                  sum(p["flops"] for p in parts), vbytes)
+                    sum(p["flops"] for p in parts), vbytes)
 
 
 def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
@@ -160,6 +179,41 @@ def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b) / iters)
     return float(np.median(ts))
+
+
+def ab_arms(make_run, arms, want: torch.Tensor, tol: float,
+            timed_only=(), rounds: int = 2, name: str = "kernel") -> dict:
+    """{arm: {"ms", "min_ms", "max_ms", "err"}}: an A/B of kernel arms on
+    the card. `make_run(arm, y)` returns a callable that launches `arm`
+    once, adding into y (shaped as `want`). Each arm not in `timed_only`
+    first runs once into a zeroed y and is held to the plain version's
+    `want` within tol * max(1, max|want|) (raises past it; "err" None for
+    the timed-only arms, whose y is wrong). Then every arm is timed by
+    graph_ms into one shared y, the arms in turns, forward then
+    backward, `rounds` times: median, least and most ms."""
+    bound = tol * max(1.0, float(want.abs().max()))
+    out = {}
+    for arm in arms:
+        y = torch.zeros_like(want)
+        make_run(arm, y)()
+        torch.cuda.synchronize()
+        err = None
+        if arm not in timed_only:
+            err = float((y - want).abs().max())
+            if not err <= bound:
+                raise AssertionError(f"{name} arm {arm}: max |kernel - "
+                                     f"plain| {err:.3e} > {bound:.3e}")
+        out[arm] = {"err": err}
+    y = torch.zeros_like(want)
+    runs = {arm: make_run(arm, y) for arm in arms}
+    times = {arm: [] for arm in arms}
+    for _ in range(rounds):
+        for arm in (*arms, *arms[::-1]):
+            times[arm].append(graph_ms(runs[arm]))
+    for arm, ts in times.items():
+        out[arm].update(ms=float(np.median(ts)), min_ms=min(ts),
+                        max_ms=max(ts))
+    return out
 
 
 def _nbytes(*tensors) -> int:
