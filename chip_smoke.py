@@ -48,13 +48,16 @@ Phases, each fatal on failure:
 7. SpMM — `op.matmat(X)` at k = 8 per matrix (column r of X is
    ((i + r) % 10) / 4, dyadic) with the launch counters reset just
    before: every fused SpMM kernel must have launched, and every column
-   must pass the golden gates; then mixed_large at k = 5 (the odd column
-   through the SpMV stream kernel) and banded_large at k = 17 (one SpMV
-   per column), gated the same way; each SpMM kernel against its plain
-   version at k = 8 with a seeded uniform(-1, 1) X (one launch per
-   class; the stream pair on RHS 0 and 1), with the phase-4 bound and
-   times; and end to end per matrix at k = 8: matmat ms against 8 SpMV
-   calls and the plain matmat, GFLOPS = 2*nnz*k/t;
+   must pass the golden gates; alone, each matrix's matmat must launch
+   the SpMM stream kernel once per stream class over all k columns and
+   the SpMV stream kernel never (launches per matmat printed); then
+   mixed_large at k = 5 (odd k through the same kernels) and
+   banded_large at k = 17 (one SpMV per column), gated the same way;
+   each SpMM kernel against its plain version at k = 8 with a seeded
+   uniform(-1, 1) X (one launch per class over all k columns), with the
+   phase-4 bound and times at k = 8; and end to end per matrix at k = 8:
+   matmat ms against 8 SpMV calls and the plain matmat, GFLOPS =
+   2*nnz*k/t;
 8. f64 — the trio planned through `TileSpMV(csr, device="cuda",
    dtype=torch.float64)` (the reference's f64 routing, native-FP64
    values), classes printed; one `op(x)` per matrix with bench.py's x as
@@ -245,11 +248,11 @@ def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
         gate(f"{name} column {r}", y[:, r], golden(csr, x[:, r]))
 
 
-# plan fields a kernel does not read: the SpMV stream kernel reads erow
-# and not the round planes, stream2.cu the planes and not erow;
-# dense_spmm.cu neither of dense.cu's derived arrays
+# plan fields a kernel does not read: the stream kernels read erow and
+# not the round planes; dense_spmm.cu neither of dense.cu's derived
+# arrays
 _UNREAD = {"stream": ("planes", "cfirst"), "stream_f64": ("planes", "cfirst"),
-           "stream2": ("erow", "cfirst"), "dense": ("cfirst",),
+           "stream2": ("planes", "cfirst"), "dense": ("cfirst",),
            "dense_f64": ("cfirst",),
            "dense_spmm": ("cmask", "groups", "cfirst")}
 # the stream kernel's slabs per block tried in phases 4 and 8 (S: all of
@@ -286,7 +289,7 @@ def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
     a seeded uniform(-1, 1) x in the plan's dtype: one launch per class,
     the `tol` bound, median times, the bound and the library call (see
     compare_on). `k` None: SpMV (flat x and y); else SpMM with x
-    (rows, k) and y (ylen, k) (the stream pair on RHS 0 and 1). Returns
+    (rows, k) and y (ylen, k). Returns
     the kernels' JSON entries (errors the largest, numbers those of the
     first matrix, then by matrix), `launches` being the main path's
     counts and `per_call` per_call_launches' of the main path's call."""
@@ -345,7 +348,7 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     """compare_kernels on one matrix: {"err", "ms", "plain_ms",
     "bound_ms", "bound_by", "library_ms"} (and the stream kernel's
     "ms_by_group"). The bound is utils.profiling.class_bound over the
-    classes' nonzeros (k = 2 for the stream pair); the library call is
+    classes' nonzeros at k; the library call is
     one cuSPARSE SpMV (`torch.mv`) or SpMM (`@`) per class on
     library_mats, checked against the plain version within `tol` and
     timed the same way as the kernel."""
@@ -362,11 +365,10 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
     yk = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
     yp = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
-    extra = (0,) if kname == "stream2" else ()
 
     def run(fn, y, **kw):
         for c in classes:
-            fn(c, xp, y, *extra, **kw)
+            fn(c, xp, y, **kw)
     before = kernels.launch_counts()[kname]
     run(wrap[kname], yk)
     run(plain[kname], yp)
@@ -385,12 +387,10 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     # the library call on the same inputs, before the timing loops below
     # add into yk and yp again
     mats = library_mats(classes, xp, ylen)
-    pair = kname == "stream2"
-    xl = xp[:, :2].contiguous() if pair else xp
 
     def lib():
-        return sum(torch.mv(a, xl) if k is None else a @ xl for a in mats)
-    lerr = float((lib() - (yp[:, :2] if pair else yp)).abs().max())
+        return sum(torch.mv(a, xp) if k is None else a @ xp for a in mats)
+    lerr = float((lib() - yp).abs().max())
     if not lerr <= bound:
         raise AssertionError(f"{kname}: max |library - plain| {lerr:.3e}"
                              f" > {bound:.3e}")
@@ -416,8 +416,7 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     plain_ms = out["plain_ms"] = cuda_ms(lambda: run(plain[kname], yp),
                                          iters=3)
     # the yardstick: the bound, and the library call's time
-    kk = 1 if k is None else (2 if kname == "stream2" else k)
-    bnd = profiling.class_bound(classes, k=kk)
+    bnd = profiling.class_bound(classes, k=1 if k is None else k)
     out.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
     try:
         lib_ms = profiling.graph_ms(lib)
@@ -516,13 +515,22 @@ def spmm_phase(dev, card, ops, csrs) -> list:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  "SpMM path")
+    # the stream classes: one launch of the SpMM kernel each, all columns
+    for n in FLAGSHIP:
+        want = len(class_lists(ops[n].device_plan())["stream2"])
+        got = (per_call[n]["stream2"], per_call[n]["stream"])
+        if got != (want, 0):
+            raise AssertionError(f"matmat {n}: stream2 / stream launches "
+                                 f"{got}, expected ({want}, 0)")
+        log(f"launches per matmat {n} (k {K_MM}): stream2 {got[0]} (one "
+            f"per stream class), stream {got[1]}")
     for n in FLAGSHIP:
         gate_mm(f"matmat {n}", csrs[n], ys[n].cpu().numpy(), xs[n])
         log(f"gate matmat {n} (k {K_MM}): ok")
 
-    # odd k (the last column through the SpMV stream kernel) and k > 16
-    # (one SpMV per column)
-    for n, k, expect in (("mixed_large", 5, ("stream2", "stream")),
+    # odd k (through the same SpMM kernels) and k > 16 (one SpMV per
+    # column)
+    for n, k, expect in (("mixed_large", 5, ("stream2", "sparse_spmm")),
                          ("banded_large", 17, ("band",))):
         x = bench_xs(csrs[n].n, k)
         kernels.reset_launch_counts()
@@ -530,7 +538,8 @@ def spmm_phase(dev, card, ops, csrs) -> list:
         torch.cuda.synchronize()
         cnt = kernels.launch_counts()
         if not all(cnt[e] for e in expect) or (
-                k > 16 and any(cnt[s] for s in SPMM_KERNELS)):
+                k > 16 and any(cnt[s] for s in SPMM_KERNELS)) or (
+                k <= 16 and cnt["stream"]):
             raise AssertionError(f"matmat {n} k {k}: launches {cnt}")
         gate_mm(f"matmat {n} k {k}", csrs[n], y.cpu().numpy(), x)
         log(f"gate matmat {n} (k {k}): ok, launches {cnt}")
@@ -538,11 +547,11 @@ def spmm_phase(dev, card, ops, csrs) -> list:
     # each SpMM kernel against its plain version
     wrap = {"band_spmm": kernels.band_spmm, "dense_spmm": kernels.dense_spmm,
             "sparse_spmm": kernels.sparse_spmm,
-            "stream2": kernels.stream_spmm2}
+            "stream2": kernels.stream_spmm}
     plain = {"band_spmm": reference.band_spmm_reference,
              "dense_spmm": reference.dense_spmm_reference,
-             "sparse_spmm": reference.sparse_spmm_reference,
-             "stream2": reference.stream2_reference}
+             "sparse_spmm": reference.sparse_rows_reference,
+             "stream2": reference.stream_rows_reference}
     results = compare_kernels(dev, card, SPMM_KERNELS, wrap, plain, ops,
                               csrs, launches, per_call, k=K_MM)
 

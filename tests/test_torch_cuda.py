@@ -1,9 +1,9 @@
 """The CUDA class kernels (SpMV and SpMM) and the microbenchmark
 kernels against their plain PyTorch versions on the card (the dense
 kernel also on a class with a one-lane chunk and a full one, the band
-kernel at C = 1 and 3, the W-class kernel at W = 16, 24 and 96 on
-edge-case tiles, each with a non-finite x, and the three kernels' A/B
-arms), the operator against the float64 golden, and
+kernel at C = 1 and 3, the W-class SpMV and SpMM kernels at W = 16, 24
+and 96 on edge-case tiles, each with a non-finite x, and the three
+kernels' A/B arms), the operator against the float64 golden, and
 `profile_engines` and `trace_context` on a CUDA operator.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
@@ -26,7 +26,8 @@ from tilespmv_tpu_torch.ops.cuda import kernels, reference
 from tilespmv_tpu_torch.ops.cuda import stream_plan as sp
 from tilespmv_tpu_torch.scripts import (band_probes, dense_probes,
                                         microbench_gather,
-                                        microbench_scatter, sparse_probes)
+                                        microbench_scatter, sparse_probes,
+                                        spmm_probes)
 from tilespmv_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -48,8 +49,9 @@ MM_PAIRS = {
     "dense": ("dense_spmm", kernels.dense_spmm,
               reference.dense_spmm_reference),
     "sparse": ("sparse_spmm", kernels.sparse_spmm,
-               reference.sparse_spmm_reference),
-    "stream": ("stream2", kernels.stream_spmm2, reference.stream2_reference)}
+               reference.sparse_rows_reference),
+    "stream": ("stream2", kernels.stream_spmm,
+               reference.stream_rows_reference)}
 
 
 def _classes(plan):
@@ -105,9 +107,12 @@ def test_kernels_match_plain_versions(name, device):
                                rtol=2e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("k", [2, 5, 16])
+@pytest.mark.parametrize("k", [2, 5, 8, 16])
 @pytest.mark.parametrize("name", sorted(MATRICES))
 def test_spmm_kernels_match_plain_versions(name, k, device):
+    """Each SpMM kernel once per class over all k columns (the stream
+    kernel too: one stream2 launch, no SpMV stream launch) against its
+    plain version; then the operator against the golden at k and 17."""
     csr = MATRICES[name]()
     op = TileSpMV(csr, device=device)
     plan = op.device_plan()
@@ -118,18 +123,17 @@ def test_spmm_kernels_match_plain_versions(name, k, device):
     ran = 0
     for kind, cls_list in _classes(plan).items():
         key, wrap, plain = MM_PAIRS[kind]
-        # the stream pair at RHS (k-2, k-1): an offset and, for odd k,
-        # an odd one
-        extra = (k - 2,) if kind == "stream" else ()
         for cls in cls_list:
             if cls is None:
                 continue
             yk = torch.zeros(ylen, k, device=device)
             yp = torch.zeros(ylen, k, device=device)
-            before = kernels.launch_counts()[key]
-            wrap(cls, xp, yk, *extra)
-            assert kernels.launch_counts()[key] == before + 1
-            plain(cls, xp, yp, *extra)
+            before = kernels.launch_counts()
+            wrap(cls, xp, yk)
+            after = kernels.launch_counts()
+            assert after[key] == before[key] + 1
+            assert after["stream"] == before["stream"]
+            plain(cls, xp, yp)
             torch.cuda.synchronize()
             err = float((yk - yp).abs().max())
             assert err <= 1e-5 * max(1.0, float(yp.abs().max())), kind
@@ -502,6 +506,63 @@ def test_sparse_kernel_edges(width, device):
     arms = sparse_probes.run_arms([s], xp, ylen, rounds=1)
     assert list(arms) == list(sparse_probes.ARMS)
     assert all(a["ms"] > 0 for a in arms.values())
+
+
+@pytest.mark.parametrize("width", SPARSE_EDGE_WIDTHS)
+def test_sparse_spmm_kernel_edges(width, device):
+    """sparse_spmm.cu at k = 8 and 16 on test_sparse_kernel_edges'
+    classes: one launch, sparse_rows_reference within 1e-5 of
+    max(1, max|plain|); with +Inf and NaN in X column 3 (at the columns
+    of two tiles' first entries), NaN for NaN and Inf for Inf against
+    sparse_rows_reference, the other columns finite."""
+    csr = sparse_edges_csr(width)
+    plan = TileSpMV(csr, device=device).device_plan()
+    s = check_sparse_edges(width, plan)
+    cols = reference.class_coo(s)[1]
+    for k in (8, 16):
+        x = np.random.default_rng(k).uniform(-1, 1, (csr.n, k)).astype(
+            np.float32)
+        xb = x.copy()
+        xb[cols[0], 3], xb[cols[-1], 3] = np.inf, np.nan
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, torch.from_numpy(xh).to(device))
+            ylen = reference.zero_y(plan, xp).shape[0]
+            before = kernels.launch_counts()["sparse_spmm"]
+            yk = kernels.sparse_spmm(s, xp, torch.zeros(ylen, k,
+                                                        device=device))
+            assert kernels.launch_counts()["sparse_spmm"] == before + 1
+            yp = reference.sparse_rows_reference(
+                s, xp, torch.zeros(ylen, k, device=device))
+            torch.cuda.synchronize()
+            fin = torch.ones(k, dtype=torch.bool)
+            fin[3] = xh is x
+            assert torch.equal(yp.isfinite().all(dim=0).cpu(), fin)
+            assert bool(yp.isnan().any()) == bool(yp.isinf().any()) == (
+                xh is xb)
+            _agree(yk, yp, 1e-5)
+
+
+def test_spmm_probe_arms_match_plain_versions(device):
+    """Every arm of scripts/spmm_probes at k = 8 on mixed_medium's stream
+    classes and W-classes: each held to its plain version within 1e-5 of
+    max(1, max|plain|) (inside ab_arms), then timed."""
+    csr = generate.get_matrix("mixed_medium")
+    plan = TileSpMV(csr, device=device).device_plan()
+    x = torch.from_numpy(np.random.default_rng(8).uniform(
+        -1, 1, (csr.n, 8)).astype(np.float32)).to(device)
+    xp = reference.pad_x(plan, x)
+    ylen = reference.zero_y(plan, xp).shape[0]
+    streams = [st for st in (plan.stream, plan.stream2) if st is not None]
+    assert streams and plan.sparses
+    for run, classes, arms in (
+            (spmm_probes.run_stream, streams, spmm_probes.STREAM_ARMS),
+            (spmm_probes.run_sparse, list(plan.sparses),
+             spmm_probes.SPARSE_ARMS)):
+        res = run(classes, xp, ylen, rounds=1)
+        assert list(res) == list(arms)
+        assert all(r["ms"] > 0 for r in res.values())
+        assert [a for a, r in res.items() if r["err"] is None] == [
+            a for a in arms if a in spmm_probes.STREAM_TIMED_ONLY]
 
 
 def _mb_check(name, run, plain) -> None:

@@ -7,7 +7,10 @@ empty) on the port's plan, which is bit-equal to the reference's, and
 there the plain versions hold to tilespmv_tpu's Pallas kernels in
 interpret mode: the band class with an Inf and a NaN in x too (NaN for
 NaN, Inf for Inf), the W-class by sparse_rows_reference (sparse.cu's
-walk) and sparse_reference, also through the wrapper on CPU tensors.
+walk) and sparse_reference, also through the wrapper on CPU tensors;
+and the W-class SpMM (sparse_spmm.cu's plain version, the rows form over
+X (n, k)) against the Pallas SpMM kernel, and with an Inf and a NaN in
+one column of X against the class's float64 CSR product.
 
 Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) over the finite
 entries (the f32 summation order differs)."""
@@ -30,6 +33,7 @@ from test_torch_cuda import (BAND_EDGES, INF_COL, NAN_COL,
                              SPARSE_EDGE_WIDTHS, check_band_edges,
                              check_sparse_edges, sparse_edges_csr)
 from test_torch_plan import assert_same
+from test_torch_spmm import close_blocks, panels_k
 
 TOL = 1e-5
 
@@ -99,4 +103,37 @@ def test_sparse_edges_match_interpret(width):
     # the wrapper runs sparse.cu's plain version on CPU tensors
     before = kernels.launch_counts()
     np.testing.assert_array_equal(run(kernels.sparse_spmv, s, plan, x), got)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("width", SPARSE_EDGE_WIDTHS)
+def test_sparse_spmm_edges_match_interpret(width):
+    """test_sparse_spmm_kernel_edges on the CPU: sparse_rows_reference on
+    X (n, 3) against sparse_spmm_call in interpret mode; with +Inf and
+    NaN in X column 1 (at the columns of two tiles' first entries), NaN
+    for NaN and Inf for Inf against the class's CSR product in float64
+    (reference.class_coo), the other columns finite; the wrapper on CPU
+    tensors runs the same plain version."""
+    csr = sparse_edges_csr(width)
+    jplan, plan = plans(csr)
+    s = check_sparse_edges(width, plan)
+    k = 3
+    x = np.random.default_rng(8).uniform(-1, 1, (csr.n, k)).astype(
+        np.float32)
+    got = run(reference.sparse_rows_reference, s, plan, x)
+    close_blocks(got, np.asarray(jk.sparse_spmm_call(
+        jplan.sparses[0], panels_k(jplan, x), jplan.n_windows, k,
+        interpret=True)))
+    row, col, val = reference.class_coo(s)
+    xb = x.copy()
+    xb[col[0], 1], xb[col[-1], 1] = np.inf, np.nan
+    got = run(reference.sparse_rows_reference, s, plan, xb)
+    gold = np.zeros(got.shape)
+    np.add.at(gold, row, val[:, None] * xb[col].astype(np.float64))
+    assert np.isnan(gold[:, 1]).any() and np.isinf(gold[:, 1]).any()
+    assert np.isfinite(gold[:, [0, 2]]).all()
+    agree(got.ravel(), gold.ravel())
+    before = kernels.launch_counts()
+    np.testing.assert_array_equal(run(kernels.sparse_spmm, s, plan, xb),
+                                  got)
     assert kernels.launch_counts() == before

@@ -23,7 +23,8 @@ from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.scripts import microbench_gather as t_gather
 from tilespmv_tpu_torch.scripts import microbench_scatter as t_scatter
 from tilespmv_tpu_torch.scripts import (band_probes, dense_probes,
-                                        sparse_probes, stream_probes)
+                                        sparse_probes, spmm_probes,
+                                        stream_probes)
 
 SCRIPTS = pathlib.Path(__file__).resolve().parents[1] / "scripts"
 TOL = 1e-5
@@ -114,7 +115,7 @@ def test_microbench_wrappers_refuse_bad_inputs():
 @pytest.mark.parametrize("script,argv", [
     (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"]),
     (stream_probes, None), (dense_probes, None), (band_probes, None),
-    (sparse_probes, None)])
+    (sparse_probes, None), (spmm_probes, None)])
 def test_scripts_exit_nonzero_without_cuda(script, argv, monkeypatch,
                                            capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -211,6 +212,53 @@ def test_sparse_probes_edit_the_kernel_source():
                         cw=torch.tensor([0, 1]))
     assert sparse_probes.class_tiles(s) == {"tiles": 4, "tile_rows": 3,
                                             "most": 2}
+
+
+def test_spmm_probes_edit_the_kernel_sources():
+    """Each copy of scripts/spmm_probes.py is stream2.cu or
+    sparse_spmm.cu as it stands with one or two constants set: the warp
+    scan off (noscan), the shared window on (window, window_noscan), the
+    products a thread holds (lanes a thread at k = 8: 2 and 4; at k = 16:
+    1 and 4), the flush's scalar atomics, the registers capped for 4
+    blocks an SM, slots or lanes of a W-class block; or with the runs'
+    adds taken out (noadd: timed only); the group and pair arms run the
+    kept source."""
+    src = (build.CSRC_DIR / "stream2.cu").read_text()
+    out = {arm: e(src) for arm, e in spmm_probes.STREAM_EDITS.items()}
+    assert spmm_probes.STREAM_ARMS == (
+        "kept", "noscan", "window", "window_noscan", "products16",
+        "products32", "scalar_atomics", "blocks4", "noadd", "group1",
+        "group2", "group4", "group8", "groupS", "pairs")
+    assert spmm_probes.STREAM_TIMED_ONLY == ("noadd",)
+    assert "constexpr int kScan = 1;" in src
+    assert "constexpr int kWindowed = 0;" in src
+    assert "constexpr int kScan = 0;" in out["noscan"]
+    assert "constexpr int kWindowed = 1;" in out["window"]
+    assert "constexpr int kScan = 0;" in out["window_noscan"]
+    assert "constexpr int kWindowed = 1;" in out["window_noscan"]
+    for p in (16, 32):
+        assert f"constexpr int kProducts = {p};" in out[f"products{p}"]
+    assert "constexpr int kMinBlocks = 4;" in out["blocks4"]
+    assert "r[u] >= 0 && c[u][0] == 1e30f) {" in out["noadd"]
+    assert "#define VEC_ATOMICS 0\n" in out["scalar_atomics"]
+    for o in out.values():
+        assert o != src and o.count("{") == o.count("}")
+    assert spmm_probes.kept_products() == 64
+    assert [spmm_probes.lanes_per_thread(p, 8) for p in (16, 32, 64)] == [
+        2, 4, 4]
+    assert [spmm_probes.lanes_per_thread(p, 16) for p in (16, 32, 64)] == [
+        1, 2, 4]
+    src = (build.CSRC_DIR / "sparse_spmm.cu").read_text()
+    out = {arm: e(src) for arm, e in spmm_probes.SPARSE_EDITS.items()}
+    assert spmm_probes.SPARSE_ARMS == ("kept", "slots16", "lanes16",
+                                       "atomic_rows", "scalar_atomics")
+    assert "constexpr int kOwnRows = 0;" in out["atomic_rows"]
+    assert "constexpr int kSlots = 16;" in out["slots16"]
+    assert "constexpr int kLanes = 16;" in out["lanes16"]
+    assert "#define VEC_ATOMICS 1\n" in src
+    assert "#define VEC_ATOMICS 0\n" in out["scalar_atomics"]
+    for o in out.values():
+        assert o != src and o.count("{") == o.count("}")
 
 
 def test_edit_const_sets_the_one_definition():

@@ -2,8 +2,9 @@
 (tilespmv_tpu_torch/ops/cuda/reference.py) against
 tilespmv_tpu's fused Pallas SpMM kernels in interpret mode, on the
 identical plan (carried across by lane_plan_from_jax), for k in
-{2, 5, 16}; and the SpMM wrappers' checks and CPU routing. The W-class
-is in test_torch_spmm_sparse.py, the stream pair in
+{2, 5, 16}; the SpMM wrappers' checks and CPU routing; and the plain
+SpMM of a plan with stream classes at odd k against the golden. The
+W-class is in test_torch_spmm_sparse.py, the stream class in
 test_torch_spmm_stream.py, the operator in test_torch_spmm_slice.py.
 
 The Pallas calls return (k*16, n_windows*256) blocks with RHS r at rows
@@ -12,6 +13,8 @@ The Pallas calls return (k*16, n_windows*256) blocks with RHS r at rows
 
 Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) (different f32
 summation order: the interpret path routes by an exact scatter-add)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -20,6 +23,8 @@ import torch
 
 from tilespmv_tpu.io import generate
 from tilespmv_tpu.ops.pallas import kernels as jk
+from tilespmv_tpu_torch import TileSpMV
+from tilespmv_tpu_torch.io import generate as t_gen
 from tilespmv_tpu_torch.ops.cuda import kernels
 from tilespmv_tpu_torch.ops.cuda import reference as ref
 from test_torch_kernels import close, plans, window_flat, y_len
@@ -88,8 +93,8 @@ def test_spmm_wrappers_use_plain_version_on_cpu():
     before = kernels.launch_counts()
     for wrap, plain, cls, extra in (
             (kernels.dense_spmm, ref.dense_spmm_reference, plan.dense, ()),
-            (kernels.stream_spmm2, ref.stream2_reference, plan.stream,
-             (3,))):
+            (kernels.stream_spmm, ref.stream_rows_reference, plan.stream,
+             ())):
         ya = torch.zeros(y_len(plan), 5)
         yb = torch.zeros(y_len(plan), 5)
         assert wrap(cls, xp, ya, *extra) is ya
@@ -102,14 +107,20 @@ def test_spmm_wrappers_use_plain_version_on_cpu():
 
 
 def test_stream_pair_touches_only_its_columns():
+    """The stream SpMM takes all k columns in one call, each column of y
+    from its own column of x only: a zero x column leaves its y column
+    zero, and every other column is the planes' SpMV of its x column."""
     plan = _cpu_plan()
     xp = ref.pad_x(plan, torch.from_numpy(xs_for(plan.n, 5)))
+    xp[:, 1] = 0
     y = torch.zeros(y_len(plan), 5)
-    kernels.stream_spmm2(plan.stream, xp, y, 1)
-    assert y[:, [0, 3, 4]].abs().max() == 0
-    one = torch.zeros(y_len(plan))
-    ref.stream_reference(plan.stream, xp[:, 2].contiguous(), one)
-    torch.testing.assert_close(y[:, 2], one)
+    kernels.stream_spmm(plan.stream, xp, y)
+    assert y[:, 1].abs().max() == 0
+    for c in (0, 2, 3, 4):
+        one = torch.zeros(y_len(plan))
+        ref.stream_reference(plan.stream, xp[:, c].contiguous(), one)
+        torch.testing.assert_close(y[:, c], one)
+        assert one.abs().max() > 0
 
 
 @pytest.mark.parametrize("k", [1, 17])
@@ -119,7 +130,8 @@ def test_fused_wrappers_refuse_k_outside_their_range(k):
     y = torch.zeros(y_len(plan), k)
     for wrap, cls in ((kernels.dense_spmm, plan.dense),
                       (kernels.band_spmm, plan.dense),
-                      (kernels.sparse_spmm, plan.dense)):
+                      (kernels.sparse_spmm, plan.dense),
+                      (kernels.stream_spmm, plan.stream)):
         with pytest.raises(ValueError, match="k = "):
             wrap(cls, xp, y)
 
@@ -129,8 +141,9 @@ def test_spmm_wrappers_refuse_bad_inputs():
     rows = max(plan.x_padded_len, plan.x_padded_len128)
     xp = torch.zeros(rows, 4)
     y = torch.zeros(y_len(plan), 4)
-    with pytest.raises(ValueError):            # RHS pair past the end
-        kernels.stream_spmm2(plan.stream, xp, y, 3)
+    with pytest.raises(ValueError):            # per-entry rows cut short
+        kernels.stream_spmm(dataclasses.replace(
+            plan.stream, erow=plan.stream.erow[:1]), xp, y)
     with pytest.raises(ValueError):            # column counts differ
         kernels.dense_spmm(plan.dense, xp, torch.zeros(y_len(plan), 3))
     with pytest.raises(ValueError):            # not 2-D
@@ -144,3 +157,22 @@ def test_spmm_wrappers_refuse_bad_inputs():
         kernels.dense_spmm(plan.dense, xp.double(), y)
     with pytest.raises(ValueError):            # x and y on two devices
         kernels.dense_spmm(plan.dense, xp, y.to("meta"))
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_spmm_reference_odd_k_matches_golden(k):
+    """Odd k takes the stream classes in the same one call per class as
+    even k: TileSpMV(device="cpu").matmat on a plan of a split stream
+    pair (stream, stream2) against the float64 CSR golden (rtol 2e-4,
+    atol 1e-4), with no kernel launched."""
+    csr = t_gen.power_law(32768, 32768, 16, seed=9)
+    op = TileSpMV(csr, device="cpu")
+    plan = op.device_plan()
+    assert plan.stream is not None and plan.stream2 is not None
+    x = xs_for(csr.n, k, seed=k)
+    before = kernels.launch_counts()
+    y = op.matmat(x).numpy()
+    assert kernels.launch_counts() == before
+    want = np.stack([csr.matvec(x[:, r].astype(np.float64))
+                     for r in range(k)], axis=1)
+    np.testing.assert_allclose(y, want, rtol=2e-4, atol=1e-4)

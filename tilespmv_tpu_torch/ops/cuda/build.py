@@ -163,8 +163,8 @@ def build_edited(source: str, edits: dict, entries) -> dict:
         cu.write_text(edit(src))
         jobs[name] = (cu, so)
     with ThreadPoolExecutor(len(jobs)) as pool:
-        for f in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-shared", "-o",
-                                     str(so), str(cu)])
+        for f in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR),
+                                     "-shared", "-o", str(so), str(cu)])
                   for cu, so in jobs.values()]:
             f.result()
     libs = {}

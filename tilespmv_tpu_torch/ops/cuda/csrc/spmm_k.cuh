@@ -35,6 +35,12 @@ bool with_k(int k, F&& f) {
   }
 }
 
+// floats of the widest load a row of K floats allows: 4, 2 or 1
+template <int K>
+__host__ __device__ constexpr int vec_width() {
+  return K % 4 == 0 ? 4 : K % 2 == 0 ? 2 : 1;
+}
+
 // acc[r] = fmaf(a, xr[r], acc[r]) for r < K
 template <int K>
 __device__ __forceinline__ void fma_row(float a,
@@ -59,6 +65,44 @@ __device__ __forceinline__ void fma_row(float a,
   } else {
 #pragma unroll
     for (int r = 0; r < K; ++r) acc[r] = fmaf(a, xr[r], acc[r]);
+  }
+}
+
+// atomicAdd(yr + r, acc[r]) for r < K, V columns an atomicAdd: V = 4 or
+// 2 are sm_90's float4 / float2 atomicAdd in global memory (yr aligned
+// to V floats), V = 1 scalar ones (shared or global memory)
+template <int K, int V = 1>
+__device__ __forceinline__ void atomic_add_row(float* yr,
+                                               const float (&acc)[K]) {
+#pragma unroll
+  for (int r = 0; r < K; r += V) {
+    if constexpr (V == 4) {
+      atomicAdd(reinterpret_cast<float4*>(yr + r),
+                make_float4(acc[r], acc[r + 1], acc[r + 2], acc[r + 3]));
+    } else if constexpr (V == 2) {
+      atomicAdd(reinterpret_cast<float2*>(yr + r),
+                make_float2(acc[r], acc[r + 1]));
+    } else {
+      atomicAdd(yr + r, acc[r]);
+    }
+  }
+}
+
+// atomicAdd of w[0..V) into y[0..V) as one V-float vector where any of
+// them is nonzero: V = 4 or 2 are sm_90's float4 / float2 atomicAdd in
+// global memory (y aligned to V floats), V = 1 a scalar one
+template <int V>
+__device__ __forceinline__ void atomic_add_nonzero(float* y, const float* w) {
+  if constexpr (V == 4) {
+    const float4 a = make_float4(w[0], w[1], w[2], w[3]);
+    if (a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f) {
+      atomicAdd(reinterpret_cast<float4*>(y), a);
+    }
+  } else if constexpr (V == 2) {
+    const float2 a = make_float2(w[0], w[1]);
+    if (a.x != 0.f || a.y != 0.f) atomicAdd(reinterpret_cast<float2*>(y), a);
+  } else {
+    if (w[0] != 0.f) atomicAdd(y, w[0]);
   }
 }
 

@@ -1,140 +1,299 @@
-// Entry-stream (COO-tile) class over two right-hand sides for sm_90a.
+// Entry-stream (COO-tile) class over k right-hand sides for sm_90a.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_stream_kernel2 (called by
-// stream_class_call2): the stream step of stream.cu for RHS r0 and r0+1
-// of X (rows, ld) into Y (ylen, ld), both row-major. Per slab si, entry
-// (k, l) with vidx v reads X[(row*128 + (v & 127))*ld + r0 + {0, 1}], with
-// stream.cu's row (sbase / sbase2 on bit 13 of v for dual-span slabs,
-// xmap for free-placement slabs: the TPU kernel permuted x for those,
-// stream_class_call2's `permute`); each RHS gets its inclusive lane
-// prefix csum; per round t, target (q, j) of window w adds
-//   csum[src, rend[src, j]] - csum[src, rstart[src, j]], src = rsrc[q, j]
-// into Y[(w*1024 + q*128 + j)*ld + r0 + {0, 1}].
+// stream_class_call2, one RHS pair a call): it computes what that kernel
+// computes for every pair of columns at once. Per slab si, entry (k, l)
+// with vidx v and erow r >= 0 adds, for each column c < K,
+//   val * X[(row*128 + (v & 127))*ld + c] into Y[(cw[step]*1024 + r)*ld + c],
+// with stream.cu's row (sbase, or sbase2 when bit 13 of v is set, for
+// span slabs; xmap[si*64 + ((v >> 7) & 7)*8 + k] for free-placement
+// slabs); X and Y row-major with rows of ld floats (the wrapper's ld is
+// K); r = -1 marks lane 0 and padding.
 //
-// Bound: device-memory bytes of the plan (4 B value + 2 B index per slot,
-// 3 B of planes per (round, target)) and gather latency, as stream.cu.
-// The fused kernel reads the slab's vidx/val and the step's int8 round
-// planes once for both RHS, which is what it saves over two SpMVs. Design:
-// stream.cu's, with two shared csum[8][128] arrays (8 KB), two warp
-// shuffle scans per sublane, and two accumulators per target; one
-// atomicAdd per nonzero (target, RHS) per step, since a window's other
-// steps run in other blocks. Steps with sactive = 0 return at once.
+// Bound: device-memory bytes, 8 B per slot (4 B value, 2 B vidx, 2 B
+// erow) read once for all K columns; X (a few MB) is gathered from L2,
+// one 32-B sector per entry at K = 8. The TPU kernel took one RHS pair a
+// call (its register limit) and routed the sums through int8 round
+// planes, so a matmat over k columns read the plan and the planes k/2
+// times. Design: stream.cu's, with K values per lane, one launch per
+// class for all K columns and the planes not read:
+// * a block of 256 threads takes `group` consecutive slabs of one step
+//   (grid nsteps * ceil(S / group)); warp k reads sublane k, 4
+//   consecutive lanes a thread (fewer where 4*K would pass kProducts),
+//   each lane gathering its X row of K floats with vector loads
+//   (spmm_k.cuh);
+// * erow is non-decreasing along a sublane's entries, so a segmented
+//   inclusive scan keyed on it (in registers, then across the warp by
+//   shuffles, K values a step) sums each run of one row;
+// * the run's last lane adds its K sums straight into Y by sm_90's
+//   vector atomics (4 or 2 columns each, red.global at L2). stream.cu's
+//   shared window (kWindowed 1: the runs add into 1024 rows of K floats
+//   in shared memory, then the window into Y) costs 1.5x here: float
+//   atomics in shared memory are compare-and-swap loops, and a run is
+//   mostly one entry long, so there are K of them per entry.
+// Steps whose slabs are all padding (sactive = 0) return at once; a
+// warp's lanes with no entry skip their value loads and gathers.
+// scripts/spmm_probes.py times kScan 0 (no warp scan: each thread's runs
+// add into Y), kWindowed 1, kProducts, scalar atomics (VEC_ATOMICS 0),
+// kMinBlocks, the group and k/2 launches at K = 2 (PERF.md).
 #include <cuda_runtime.h>
+
+#include "spmm_k.cuh"
+
+// 1: the adds into Y take 4 or 2 columns an atomicAdd where K and ld
+// allow (sm_90's float4 / float2 atomicAdd in global memory); 0: one
+#define VEC_ATOMICS 1
 
 namespace {
 
 constexpr int kSubs = 8;
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
-constexpr int kTargetsPerThread = kSubs * kLanes / kThreads;
+constexpr int kWindow = kSubs * kLanes;
+constexpr int kProducts = 64;  // most lanes * K products a thread holds
+constexpr int kScan = 1;       // 0: each thread's runs add on their own
+constexpr int kMinBlocks = 1;  // resident blocks an SM the registers allow
+constexpr int kWindowed = 0;   // 1: runs add into a shared window first
+constexpr unsigned kFull = 0xffffffffu;
 
-// inclusive prefix of c[0..3] across the warp's 128 lanes (4 per thread)
-__device__ __forceinline__ void lane_prefix(float c[4], int lane_id) {
-  c[1] += c[0];
-  c[2] += c[1];
-  c[3] += c[2];
-  float inc = c[3];
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane_id >= off) inc += n;
-  }
-  const float excl = inc - c[3];
-#pragma unroll
-  for (int u = 0; u < 4; ++u) c[u] += excl;
+// lanes a thread takes at K: 4, 2 or 1
+template <int K>
+__host__ __device__ constexpr int lanes_per_thread() {
+  return kProducts / K >= 4 ? 4 : kProducts / K >= 2 ? 2 : 1;
 }
 
-__global__ void __launch_bounds__(kThreads)
-stream2_kernel(const float* __restrict__ val,
-               const short* __restrict__ vidx,
-               const signed char* __restrict__ planes,
-               const int* __restrict__ sbase, const int* __restrict__ sbase2,
-               const int* __restrict__ xmap, const int* __restrict__ cw,
-               const int* __restrict__ sactive,
-               const float* __restrict__ x, float* __restrict__ y,
-               int s_batch, int rounds, int span_rows, int ld, int r0) {
-  const int step = blockIdx.x;
-  if (sactive[step] == 0) return;
-  __shared__ float csum[2][kSubs][kLanes];
-  const int tid = threadIdx.x;
-  const int k = tid >> 5;            // sublane this warp scans
-  const int lane_id = tid & 31;
-  const int l0 = lane_id * 4;        // first of this thread's 4 lanes
-  const int rows_per_sub = span_rows / 8;
-  const long long sb8 = (long long)s_batch * kSubs;
-  const signed char* ps =
-      planes + (long long)step * rounds * 3 * sb8 * kLanes;
-  const float* xr0 = x + r0;
-  float acc[2][kTargetsPerThread];
-#pragma unroll
-  for (int q = 0; q < kTargetsPerThread; ++q) acc[0][q] = acc[1][q] = 0.f;
+// floats between two window rows: K, made odd
+template <int K>
+__host__ __device__ constexpr int win_stride() {
+  return K | 1;
+}
 
-  for (int s = 0; s < s_batch; ++s) {
+template <int L>
+__device__ __forceinline__ void load_lanes(const float* p, float (&v)[L]) {
+  if constexpr (L == 4) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else if constexpr (L == 2) {
+    const float2 a = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+// L int16 as ints (sign-extended) from one load
+template <int L>
+__device__ __forceinline__ void load_lanes(const short* p, int (&v)[L]) {
+  if constexpr (L == 4) {
+    const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+    v[0] = static_cast<short>(a.x & 0xffffu);
+    v[1] = static_cast<short>(a.x >> 16);
+    v[2] = static_cast<short>(a.y & 0xffffu);
+    v[3] = static_cast<short>(a.y >> 16);
+  } else if constexpr (L == 2) {
+    const unsigned a = __ldcs(reinterpret_cast<const unsigned*>(p));
+    v[0] = static_cast<short>(a & 0xffffu);
+    v[1] = static_cast<short>(a >> 16);
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+stream_spmm_kernel(const float* __restrict__ val,
+                   const short* __restrict__ vidx,
+                   const short* __restrict__ erow,
+                   const int* __restrict__ sbase,
+                   const int* __restrict__ sbase2,
+                   const int* __restrict__ xmap, const int* __restrict__ cw,
+                   const int* __restrict__ sactive,
+                   const float* __restrict__ x, float* __restrict__ y,
+                   int s_batch, int group, int groups_per_step,
+                   int span_rows, int ld) {
+  constexpr int L = lanes_per_thread<K>();
+  constexpr int RS = win_stride<K>();
+  // sm_90's vector atomics take kV columns at once
+  constexpr int kV = VEC_ATOMICS ? tsp::vec_width<K>() : 1;
+  const int step = blockIdx.x / groups_per_step;
+  if (sactive[step] == 0) return;
+  const int g0 = (blockIdx.x - step * groups_per_step) * group;
+  const int g1 = min(g0 + group, s_batch);
+  extern __shared__ float win[];     // kWindow rows of RS floats
+  const int tid = threadIdx.x;
+  float* yw = y + (long long)cw[step] * kWindow * ld;
+  if constexpr (kWindowed != 0) {
+    for (int i = tid; i < kWindow * RS; i += kThreads) win[i] = 0.f;
+    __syncthreads();
+  }
+
+  const int k = tid >> 5;            // sublane this warp reads
+  const int lane_id = tid & 31;
+  const int rows_per_sub = span_rows / 8;
+  for (int s = g0; s < g1; ++s) {
     const long long si = (long long)step * s_batch + s;
-    const long long e0 = (si * kSubs + k) * kLanes + l0;
-    float ca[4], cb[4];
+#pragma unroll 1
+    for (int l0 = lane_id * L; l0 < kLanes; l0 += 32 * L) {
+      const long long e0 = (si * kSubs + k) * kLanes + l0;
+      int r[L];
+      load_lanes<L>(erow + e0, r);
+      int rmax = r[0];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const unsigned v = static_cast<unsigned short>(vidx[e0 + u]);
-      const int ch = static_cast<int>((v >> 7) & (rows_per_sub - 1));
-      long long row;
-      if (xmap != nullptr) {
-        row = xmap[si * 64 + ch * kSubs + k];
-      } else {
-        const int sb = ((v >> 13) & 1u) ? sbase2[si] : sbase[si];
-        row = (long long)sb + k * rows_per_sub + ch;
+      for (int u = 1; u < L; ++u) rmax = max(rmax, r[u]);
+      if (!__any_sync(kFull, rmax >= 0)) continue;  // no entry here
+      float v[L];
+      int ci[L];
+      load_lanes<L>(val + e0, v);
+      load_lanes<L>(vidx + e0, ci);
+      int sb = 0, sb2 = 0;
+      if (xmap == nullptr) {
+        sb = sbase[si];
+        sb2 = sbase2[si];
       }
-      const float a = val[e0 + u];
-      const float* xe = xr0 + (row * kLanes + (v & 127u)) * ld;
-      ca[u] = a * xe[0];
-      cb[u] = a * xe[1];
-    }
-    lane_prefix(ca, lane_id);
-    lane_prefix(cb, lane_id);
+      float c[L][K];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      csum[0][k][l0 + u] = ca[u];
-      csum[1][k][l0 + u] = cb[u];
-    }
-    __syncthreads();
+      for (int u = 0; u < L; ++u) {
 #pragma unroll
-    for (int q = 0; q < kTargetsPerThread; ++q) {
-      const int idx = tid + q * kThreads;
-      const int tq = idx >> 7;
-      const int j = idx & (kLanes - 1);
-      for (int t = 0; t < rounds; ++t) {
-        const signed char* pt = ps + (long long)t * 3 * sb8 * kLanes;
-        const int src = pt[(2 * sb8 + s * kSubs + tq) * kLanes + j];
-        const int e = pt[(s * kSubs + src) * kLanes + j];
-        const int st = pt[(sb8 + s * kSubs + src) * kLanes + j];
-        acc[0][q] += csum[0][src][e] - csum[0][src][st];
-        acc[1][q] += csum[1][src][e] - csum[1][src][st];
+        for (int j = 0; j < K; ++j) c[u][j] = 0.f;
+        if (r[u] >= 0) {
+          const unsigned cv = static_cast<unsigned>(ci[u]) & 0xffffu;
+          const int ch = static_cast<int>((cv >> 7) & (rows_per_sub - 1));
+          long long row;
+          if (xmap != nullptr) {
+            row = xmap[si * 64 + ch * kSubs + k];
+          } else {
+            row = (long long)(((cv >> 13) & 1u) ? sb2 : sb) +
+                  k * rows_per_sub + ch;
+          }
+          tsp::fma_row<K>(v[u], x + (row * kLanes + (cv & 127u)) * ld,
+                          c[u]);
+        }
+      }
+      // segmented inclusive sums within the thread's L lanes
+#pragma unroll
+      for (int u = 1; u < L; ++u) {
+        if (r[u] == r[u - 1]) {
+#pragma unroll
+          for (int j = 0; j < K; ++j) c[u][j] += c[u - 1][j];
+        }
+      }
+      const int next_r0 = __shfl_down_sync(kFull, r[0], 1);
+      if constexpr (kScan != 0) {
+        const int prev_r = __shfl_up_sync(kFull, r[L - 1], 1);
+        bool whole = true;
+#pragma unroll
+        for (int u = 1; u < L; ++u) whole = whole && r[u] == r[0];
+        // (head, tot): does the thread's last run start in it, and that
+        // run's K sums so far; scanned across the warp
+        int head = !(whole && lane_id > 0 && prev_r == r[L - 1]);
+        float tot[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) tot[j] = c[L - 1][j];
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int nh = __shfl_up_sync(kFull, head, off);
+          float nt[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            nt[j] = __shfl_up_sync(kFull, tot[j], off);
+          }
+          if (lane_id >= off) {
+            if (!head) {
+#pragma unroll
+              for (int j = 0; j < K; ++j) tot[j] += nt[j];
+            }
+            head |= nh;
+          }
+        }
+        // the run the previous thread ended in, if it goes on here
+        float cin[K];
+#pragma unroll
+        for (int j = 0; j < K; ++j) cin[j] = __shfl_up_sync(kFull, tot[j], 1);
+        const bool carry = lane_id > 0 && prev_r == r[0];
+        bool lead = true;
+#pragma unroll
+        for (int u = 0; u < L; ++u) {
+          lead = lead && r[u] == r[0];
+          if (carry && lead) {
+#pragma unroll
+            for (int j = 0; j < K; ++j) c[u][j] += cin[j];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const bool end = u < L - 1 ? r[u] != r[u + 1]
+                                   : (kScan == 0 || lane_id == 31 ||
+                                      next_r0 != r[L - 1]);
+        if (end && r[u] >= 0) {
+          if constexpr (kWindowed != 0) {
+            tsp::atomic_add_row<K>(win + r[u] * RS, c[u]);
+          } else {
+            tsp::atomic_add_row<K, kV>(yw + (long long)r[u] * ld, c[u]);
+          }
+        }
       }
     }
-    __syncthreads();
   }
-  float* yw = y + (long long)cw[step] * kSubs * kLanes * ld + r0;
-#pragma unroll
-  for (int q = 0; q < kTargetsPerThread; ++q) {
-    float* yq = yw + (long long)(tid + q * kThreads) * ld;
-    if (acc[0][q] != 0.f) atomicAdd(yq, acc[0][q]);
-    if (acc[1][q] != 0.f) atomicAdd(yq + 1, acc[1][q]);
+  if constexpr (kWindowed == 0) return;
+  // the window into Y, one atomicAdd a row and vector of columns that
+  // holds a nonzero: the window's other groups and steps run in other
+  // blocks
+  __syncthreads();
+  for (int i = tid; i < kWindow * (K / kV); i += kThreads) {
+    const int row = i / (K / kV);
+    const int j = (i - row * (K / kV)) * kV;
+    tsp::atomic_add_nonzero<kV>(yw + (long long)row * ld + j,
+                                win + row * RS + j);
   }
+}
+
+// bytes of the shared window
+template <int K>
+__host__ __device__ constexpr int win_bytes() {
+  return kWindowed ? kWindow * win_stride<K>() * 4 : 0;
+}
+
+template <int K>
+int launch(const float* val, const short* vidx, const short* erow,
+           const int* sbase, const int* sbase2, const int* xmap,
+           const int* cw, const int* sactive, const float* x, float* y,
+           int nsteps, int s_batch, int span_rows, int group, int gps,
+           int ld, cudaStream_t stream) {
+  constexpr int bytes = win_bytes<K>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      stream_spmm_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  stream_spmm_kernel<K><<<nsteps * gps, kThreads, bytes, stream>>>(
+      val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
+      group, gps, span_rows, ld);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int tsp_stream2(const float* val, const short* vidx,
-                           const signed char* planes, const int* sbase,
+                           const short* erow, const int* sbase,
                            const int* sbase2, const int* xmap, const int* cw,
                            const int* sactive, const float* x, float* y,
-                           int nsteps, int s_batch, int rounds, int span_rows,
-                           int ld, int r0, void* stream) {
-  if (nsteps > 0) {
-    stream2_kernel<<<nsteps, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        val, vidx, planes, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
-        rounds, span_rows, ld, r0);
+                           int nsteps, int s_batch, int span_rows, int group,
+                           int k_rhs, int ld, void* stream) {
+  const int gps = group > 0 ? (s_batch + group - 1) / group : 0;
+  if (gps < 1 || ld < k_rhs || (long long)nsteps * gps > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  int err = static_cast<int>(cudaSuccess);
+  const bool ok = tsp::with_k(k_rhs, [&](auto kc) {
+    constexpr int K = decltype(kc)::value;
+    if (ld % tsp::vec_width<K>()) {     // rows not aligned for vector use
+      err = static_cast<int>(cudaErrorInvalidValue);
+    } else if (nsteps > 0) {
+      err = launch<K>(
+          val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, nsteps,
+          s_batch, span_rows, group, gps, ld,
+          static_cast<cudaStream_t>(stream));
+    }
+  });
+  return ok ? err : static_cast<int>(cudaErrorInvalidValue);
 }

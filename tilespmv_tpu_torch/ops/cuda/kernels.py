@@ -5,8 +5,8 @@ Each SpMV wrapper `*_spmv(cls, x, y)` checks its inputs and adds its
 class's contribution into the flat `y` in place (see reference.py for
 the index arithmetic), in the dtype of the class's `val`, which x and y
 share: float32, or float64 for the band, dense and stream classes of an
-f64 plan (the `*_f64` kernels); each SpMM wrapper (`band_spmm`, `dense_spmm`,
-`sparse_spmm` for k in SPMM_K, `stream_spmm2` for one RHS pair) does the
+f64 plan (the `*_f64` kernels); each SpMM wrapper (`band_spmm`,
+`dense_spmm`, `sparse_spmm`, `stream_spmm`, for k in SPMM_K) does the
 same for x (rows, k) and y (ylen, k), row-major, in float32 (an f64
 operator runs one SpMV per column). `x` must be padded by
 `reference.pad_x` and `y` span the plan's windows, as
@@ -38,7 +38,7 @@ from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         microbench_gather_reference,
                         microbench_scatter_reference,
                         sparse_rows_reference, sparse_spmm_reference,
-                        stream2_reference, stream_rows_reference)
+                        stream_rows_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
@@ -47,9 +47,10 @@ SPMM_K = range(2, 17)
 # tile rows of one dense.cu block (its kWarps): a block is one lane group
 # of DENSE_GROUP tiles by DENSE_ROWS of the 16 rows
 DENSE_ROWS = 8
-# slabs per block of the SpMV stream kernel (stream.cu): a block takes up
-# to this many consecutive slabs of one step. 2 was the fastest of
-# {1, 2, 4, S} on the flagship stream classes of both dtypes (PERF.md)
+# slabs per block of the stream kernels (stream.cu, stream2.cu): a block
+# takes up to this many consecutive slabs of one step. 2 was the fastest
+# of {1, 2, 4, S} on the flagship stream classes of both dtypes, and
+# stream2.cu's of {1, 2, 4, 8, S} at k = 8 and 16 (PERF.md)
 STREAM_GROUP = 2
 LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
             "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0,
@@ -113,9 +114,8 @@ def _check_xy(x, y, dtype=torch.float32) -> None:
         raise ValueError(f"x on {x.device}, y on {y.device}")
 
 
-def _check_xy_mm(name: str, x, y, k_range=SPMM_K) -> int:
-    """k of x (rows, k) and y (ylen, k), checked against k_range (None:
-    any k)."""
+def _check_xy_mm(name: str, x, y) -> int:
+    """k of x (rows, k) and y (ylen, k), checked against SPMM_K."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"{name}: x and y must be float32")
     if x.dim() != 2 or y.dim() != 2 or not x.is_contiguous() \
@@ -129,9 +129,9 @@ def _check_xy_mm(name: str, x, y, k_range=SPMM_K) -> int:
     k = x.shape[1]
     if y.shape[1] != k:
         raise ValueError(f"{name}: x has {k} columns, y {y.shape[1]}")
-    if k_range is not None and k not in k_range:
+    if k not in SPMM_K:
         raise ValueError(f"{name}: k = {k}, the kernel takes "
-                         f"{k_range.start} <= k < {k_range.stop}")
+                         f"{SPMM_K.start} <= k < {SPMM_K.stop}")
     return k
 
 
@@ -198,6 +198,7 @@ def _check_stream(st, dev, dtype=torch.float32) -> int:
     nsl = nsteps * S
     _check("stream.val", st.val, dtype, (nsl, SUBS, LANES), dev)
     _check("stream.vidx", st.vidx, torch.int16, (nsl, SUBS, LANES), dev)
+    _check("stream.erow", st.erow, torch.int16, (nsl, SUBS, LANES), dev)
     _check("stream.planes", st.planes, torch.int8,
            (nsteps, step_plane_rows(R, S), LANES), dev)
     _check("stream.sbase", st.sbase, torch.int32, (nsl,), dev)
@@ -298,8 +299,6 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
     dt = _value_dtype(st.val)
     _check_xy(x, y, dt)
     nsteps = _check_stream(st, y.device, dt)
-    _check("stream.erow", st.erow, torch.int16, tuple(st.val.shape),
-           y.device)
     if not _use_kernel(y):
         return stream_rows_reference(st, x, y)
     name = "stream" + _SUFFIX[dt]
@@ -340,7 +339,8 @@ def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class over the k columns of x (rows, k) into y (ylen, k)."""
+    """W-class over the k columns of x (rows, k) into y (ylen, k); each
+    row sums its own slots (sparse_spmm_reference)."""
     k = _check_xy_mm("sparse_spmm", x, y)
     nch = _check_sparse(s, y.device)
     if not _use_kernel(y):
@@ -352,22 +352,21 @@ def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def stream_spmm2(st, x: torch.Tensor, y: torch.Tensor,
-                 r: int) -> torch.Tensor:
-    """Stream class over columns r and r+1 of x (rows, k) into y
-    (ylen, k), any k >= 2."""
-    k = _check_xy_mm("stream_spmm2", x, y, k_range=None)
-    if not 0 <= r < k - 1:
-        raise ValueError(f"stream_spmm2: RHS pair ({r}, {r + 1}) outside "
-                         f"the {k} columns")
+def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Stream class over the k columns of x (rows, k) into y (ylen, k) in
+    one launch: each entry added into its own output row `erow` of every
+    column (stream_rows_reference); a block takes STREAM_GROUP slabs of
+    a step."""
+    k = _check_xy_mm("stream_spmm", x, y)
     nsteps = _check_stream(st, y.device)
     if not _use_kernel(y):
-        return stream2_reference(st, x, y, r)
+        return stream_rows_reference(st, x, y)
     sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
     err = build.load().tsp_stream2(
-        _p(st.val), _p(st.vidx), _p(st.planes), _p(st.sbase), _p(sb2),
+        _p(st.val), _p(st.vidx), _p(st.erow), _p(st.sbase), _p(sb2),
         _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
-        st.s_batch, st.rounds, st.span_rows, k, r, _stream())
+        st.s_batch, st.span_rows, min(STREAM_GROUP, st.s_batch), k, k,
+        _stream())
     _launched("stream2", err)
     return y
 
@@ -382,14 +381,14 @@ def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n, k) with k in SPMM_K, through the fused SpMM
-    kernels (an odd k's last column through the SpMV stream kernel); on
-    CPU tensors every class runs its plain version. f32 plans only."""
+    kernels; on CPU tensors every class runs its plain version. f32
+    plans only."""
     if plan.dtype != torch.float32:
         raise TypeError(f"the fused SpMM kernels take f32 plans, not "
                         f"{plan.dtype} (an f64 operator runs one SpMV "
                         "per column)")
     return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
-                       stream_spmm2, stream_spmv)
+                       stream_spmm)
 
 
 def _mb_out(dev, nsteps: int) -> torch.Tensor:

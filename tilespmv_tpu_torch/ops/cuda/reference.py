@@ -166,8 +166,8 @@ def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """W-class as the Pallas kernel forms it: contrib[c, s, t] = val *
     xg[col(s)], an inclusive prefix over slots, row r's sum = cs[rend[r]]
     - cs[rend[r-1]] (slot 0 is a reserved zero, so rend = 0 reads 0).
-    sparse_spmm.cu's plain version; sparse.cu's is sparse_rows_reference.
-    The two differ only where x is not finite: the prefix takes every
+    The W-class kernels' plain version is sparse_rows_reference (SpMV and
+    SpMM). The two differ only where x is not finite: the prefix takes every
     slot (the reserved zero and the padding as 0 * x[column 0]) and
     carries Inf - Inf into later rows, so NaN reaches rows whose CSR sum
     is finite."""
@@ -186,7 +186,8 @@ def sparse_reference(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def sparse_rows_reference(s, x: torch.Tensor,
                           y: torch.Tensor) -> torch.Tensor:
-    """W-class as sparse.cu walks it (sparse_spmv's plain version): slot
+    """W-class as sparse.cu and sparse_spmm.cu walk it (the plain version
+    of sparse_spmv and, x (rows, k), of sparse_spmm): slot
     s >= 1 of an active tile lies in row r = #{r' : rend[r'] < s} and
     adds val * x[tilecol*16 + col(s)] into the tile's row-r sum; slots
     past rend[15] hold nothing; the tiles' row sums are then added into
@@ -238,8 +239,8 @@ def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Stream class in the planes' form (the Pallas kernel's): per slab,
     contrib = val * x[entry column], an inclusive prefix along lanes,
     then per round t target (q, j) adds csum[src, rend[src, j]] -
-    csum[src, rstart[src, j]], src = rsrc[q, j]. stream2.cu's plain
-    version; stream.cu's is stream_rows_reference."""
+    csum[src, rstart[src, j]], src = rsrc[q, j]. The stream kernels'
+    plain version is stream_rows_reference (stream.cu, stream2.cu)."""
     S, R = st.s_batch, st.rounds
     dev = y.device
     rhs = x.shape[1:]
@@ -266,9 +267,9 @@ def stream_reference(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def stream_rows_reference(st, x: torch.Tensor,
                           y: torch.Tensor) -> torch.Tensor:
-    """Stream class by per-entry rows (stream.cu's plain version): every
-    slot with erow >= 0 adds val * x[entry column] into
-    y[cw*1024 + erow]."""
+    """Stream class by per-entry rows (the plain version of stream.cu and,
+    x (rows, k), of stream2.cu): every slot with erow >= 0 adds
+    val * x[entry column] into y[cw*1024 + erow]."""
     hit = st.erow >= 0
     win = st.cw.long().repeat_interleave(st.s_batch)
     rows = win[:, None, None] * RW_ROWS + st.erow.long()
@@ -278,16 +279,18 @@ def stream_rows_reference(st, x: torch.Tensor,
 
 # The class versions above take k right-hand sides as well: they are the
 # plain versions of the fused SpMM kernels (band_spmm.cu, dense_spmm.cu,
-# sparse_spmm.cu).
+# sparse_spmm.cu; stream2.cu's is stream_rows_reference). The W-class's is
+# the rows form, as its kernel sums each row's own slots.
 band_spmm_reference = band_reference
 dense_spmm_reference = dense_reference
-sparse_spmm_reference = sparse_reference
+sparse_spmm_reference = sparse_rows_reference
 
 
 def stream2_reference(st, x: torch.Tensor, y: torch.Tensor,
                       r: int) -> torch.Tensor:
-    """The stream class on RHS r and r+1 of x (rows, k) into y (ylen, k):
-    stream2.cu's plain version."""
+    """The stream class on RHS r and r+1 of x (rows, k) into y (ylen, k)
+    in the planes' form: what the Pallas stream_class_call2 computes for
+    that pair, to which the tests hold stream_rows_reference."""
     stream_reference(st, x[:, r:r + 2], y[:, r:r + 2])
     return y
 
@@ -426,11 +429,8 @@ def residual_add(plan: LanePlan, x, y) -> None:
         y.index_add_(0, r.row.long(), _rhs(r.val, x) * x[r.col.long()])
 
 
-def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-             stream) -> torch.Tensor:
-    """y = A @ x with the given class functions, in the reference's
-    class order (dense, band, W-classes, stream, stream2, residual)."""
-    x = _checked_x(plan, x, 1)
+def _assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
+              stream) -> torch.Tensor:
     xp = pad_x(plan, x)
     y = zero_y(plan, x)
     _panel_classes(plan, xp, y, band, dense, sparse)
@@ -441,31 +441,22 @@ def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
     return y[: plan.m]
 
 
+def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
+             stream) -> torch.Tensor:
+    """y = A @ x with the given class functions, in the reference's
+    class order (dense, band, W-classes, stream, stream2, residual)."""
+    return _assemble(plan, _checked_x(plan, x, 1), band, dense, sparse,
+                     stream)
+
+
 def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-                stream2, stream) -> torch.Tensor:
+                stream) -> torch.Tensor:
     """Y = A @ X for X (n, k) with the given class functions, in
-    spmm_pallas's order (tilespmv_tpu/ops/pallas/kernels.py:1069-1140):
-    dense, band, W-classes over all k RHS; the stream classes over RHS
-    pairs (r, r+1), stream2 after stream; an odd k's last column through
-    the single-RHS `stream` on a contiguous copy of that column; then
-    the residual."""
-    x = _checked_x(plan, x, 2)
-    k = x.shape[1]
-    xp = pad_x(plan, x)
-    y = zero_y(plan, x)
-    _panel_classes(plan, xp, y, band, dense, sparse)
-    streams = [st for st in (plan.stream, plan.stream2) if st is not None]
-    for r in range(0, k - 1, 2):
-        for st in streams:
-            stream2(st, xp, y, r)
-    if k % 2 and streams:
-        xc = xp[:, k - 1].contiguous()
-        yc = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
-        for st in streams:
-            stream(st, xc, yc)
-        y[:, k - 1] += yc
-    residual_add(plan, x, y)
-    return y[: plan.m]
+    spmm_pallas's class order (tilespmv_tpu/ops/pallas/kernels.py:
+    1069-1140), each class over all k columns in one call (spmm_pallas
+    takes the stream classes an RHS pair a call)."""
+    return _assemble(plan, _checked_x(plan, x, 2), band, dense, sparse,
+                     stream)
 
 
 def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -478,8 +469,7 @@ def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n, k), with the plain PyTorch class versions (any
     device)."""
     return assemble_mm(plan, x, band_spmm_reference, dense_spmm_reference,
-                       sparse_spmm_reference, stream2_reference,
-                       stream_rows_reference)
+                       sparse_spmm_reference, stream_rows_reference)
 
 
 # The microbenchmarks' shapes (scripts/microbench_{gather,scatter}.py of
