@@ -55,7 +55,10 @@ Phases, each fatal on failure:
    banded_large at k = 17 (one SpMV per column), gated the same way;
    each SpMM kernel against its plain version at k = 8 with a seeded
    uniform(-1, 1) X (one launch per class over all k columns), with the
-   phase-4 bound and times at k = 8; and end to end per matrix at k = 8:
+   phase-4 bound and times at k = 8, band_spmm's and dense_spmm's rows
+   also with their launch and layout floor (kernels.band_launch,
+   dense_launch at k = 8: printed, kept out of the JSON line); and end
+   to end per matrix at k = 8:
    matmat ms against 8 SpMV calls and the plain matmat, GFLOPS =
    2*nnz*k/t;
 8. f64 — the trio planned through `TileSpMV(csr, device="cuda",
@@ -249,12 +252,10 @@ def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
 
 
 # plan fields a kernel does not read: the stream kernels read erow and
-# not the round planes; dense_spmm.cu neither of dense.cu's derived
-# arrays
+# not the round planes; the dense kernels not cfirst
 _UNREAD = {"stream": ("planes", "cfirst"), "stream_f64": ("planes", "cfirst"),
            "stream2": ("planes", "cfirst"), "dense": ("cfirst",),
-           "dense_f64": ("cfirst",),
-           "dense_spmm": ("cmask", "groups", "cfirst")}
+           "dense_f64": ("cfirst",), "dense_spmm": ("cfirst",)}
 # the stream kernel's slabs per block tried in phases 4 and 8 (S: all of
 # a step's slabs, the wrapper clamping the group to S)
 STREAM_GROUPS = {"1": 1, "2": 2, "4": 4, "S": 1 << 30}
@@ -431,6 +432,8 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     if kname in ("dense", "dense_f64"):
         out["ab"] = dense_lines(
             card, kname, mname, classes[0], xp, ylen, ms, bnd, lib_ms)
+    if kname in ("band_spmm", "dense_spmm"):
+        spmm_launch_line(card, kname, mname, classes[0], k, ms, bnd, lib_ms)
     mb = sum(class_bytes(c, kname) for c in classes) / 1e6
     log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
         f"{mb:.1f} MB of plan read, launches +{delta}"
@@ -494,6 +497,32 @@ def dense_lines(card, kname, mname, d, xp, ylen, ms, bnd, lib_ms) -> dict:
             f"{r['max_ms']:.4f}), {r['ms'] / main:.3f}x groups+mask, max "
             f"abs err {r['err']:.3e} [{card}]")
     return ab
+
+
+def spmm_launch_line(card, kname, mname, cls, k, ms, bnd, lib_ms) -> None:
+    """The launch of band_spmm.cu or dense_spmm.cu on class `cls` at k,
+    counted from the plan (kernels.band_launch / dense_launch: blocks,
+    dense's active tiles of the lane slots, the bytes of its layout and
+    their time at 3.35 TB/s, the layout floor), beside its time, bound
+    and cuSPARSE time, printed."""
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    from tilespmv_tpu_torch.utils.profiling import HBM_BYTES_PER_S
+    if kname == "dense_spmm":
+        ln = kernels.dense_launch(cls, k=k)
+        grid = (f"{ln['blocks']} blocks, active tiles {ln['active']} / "
+                f"lane slots {ln['slots']} "
+                f"({ln['active'] / ln['slots']:.3f})")
+    else:
+        ln = kernels.band_launch(cls, k=k)
+        grid = f"{ln['blocks']} blocks"
+    floor_ms = ln["bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"kernel {kname} on {mname} launch (k {k}): {grid}; reads "
+        f"{ln['bytes'] / 1e6:.3f} MB (values {ln['val_bytes'] / 1e6:.3f} "
+        f"MB), layout floor {floor_ms:.4f} ms; kernel {ms:.4f} ms "
+        f"({floor_ms / ms:.3f} of the floor), bound {bnd['bound_ms']:.4f} "
+        f"ms by {bnd['bound_by']}, share {bnd['bound_ms'] / ms:.3f}, "
+        f"cuSPARSE {lib_ms:.4f} ms, kernel / library {ms / lib_ms:.2f} "
+        f"[{card}]")
 
 
 def spmm_phase(dev, card, ops, csrs) -> list:

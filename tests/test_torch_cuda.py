@@ -1,9 +1,10 @@
 """The CUDA class kernels (SpMV and SpMM) and the microbenchmark
 kernels against their plain PyTorch versions on the card (the dense
-kernel also on a class with a one-lane chunk and a full one, the band
-kernel at C = 1 and 3, the W-class SpMV and SpMM kernels at W = 16, 24
-and 96 on edge-case tiles, each with a non-finite x, and the three
-kernels' A/B arms), the operator against the float64 golden, and
+SpMV and SpMM kernels also on a class with a one-lane chunk and a full
+one, the band SpMV kernel at C = 1 and 3 and the band SpMM kernel at
+C = 1, 3 and 7, the W-class SpMV and SpMM kernels at W = 16, 24 and 96
+on edge-case tiles, each with a non-finite x, and the probe scripts' A/B
+arms), the operator against the float64 golden, and
 `profile_engines` and `trace_context` on a CUDA operator.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
@@ -542,22 +543,109 @@ def test_sparse_spmm_kernel_edges(width, device):
             _agree(yk, yp, 1e-5)
 
 
+# band classes of the SpMM card test: BAND_EDGES and C = 7 (the planner's
+# BAND_MAX_COLS is 8), whose 7 column blocks of X at k = 16 would not fit
+# a block's shared memory at once
+BAND_SPMM_EDGES = {
+    **BAND_EDGES,
+    "band_c7": lambda: generate.banded(8192, 8192, 40, seed=13),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BAND_SPMM_EDGES))
+def test_band_spmm_kernel_edges(name, device):
+    """band_spmm.cu at C = 1 and 3 (BAND_EDGES) and C = 7, at k = 5, 8 and
+    16: one launch, band_spmm_reference within 1e-5 of max(1, max|plain|);
+    with +Inf and NaN in X column 2 (INF_COL, NAN_COL), NaN for NaN and
+    Inf for Inf (every product is taken, zeros included), the other
+    columns finite."""
+    csr = BAND_SPMM_EDGES[name]()
+    plan = TileSpMV(csr, device=device).device_plan()
+    if name in BAND_EDGES:
+        check_band_edges(name, plan)
+    else:
+        assert plan.band is not None and plan.band.c_cols == 7
+    for k in (5, 8, 16):
+        x = np.random.default_rng(k).uniform(-1, 1, (csr.n, k)).astype(
+            np.float32)
+        xb = x.copy()
+        xb[INF_COL, 2], xb[NAN_COL, 2] = np.inf, np.nan
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, torch.from_numpy(xh).to(device))
+            ylen = reference.zero_y(plan, xp).shape[0]
+            before = kernels.launch_counts()["band_spmm"]
+            yk = kernels.band_spmm(plan.band, xp,
+                                   torch.zeros(ylen, k, device=device))
+            assert kernels.launch_counts()["band_spmm"] == before + 1
+            yp = reference.band_spmm_reference(
+                plan.band, xp, torch.zeros(ylen, k, device=device))
+            torch.cuda.synchronize()
+            fin = torch.ones(k, dtype=torch.bool)
+            fin[2] = xh is x
+            assert torch.equal(yp.isfinite().all(dim=0).cpu(), fin)
+            _agree(yk, yp, 1e-5)
+
+
+def test_dense_spmm_kernel_edges(device):
+    """dense_spmm.cu at k = 5, 8 and 16 on dense_edges_csr's class (a
+    one-lane chunk, a full chunk, tiles with zero columns): one launch,
+    both plain versions (dense_active_reference, dense_reference) within
+    1e-5 of max(1, max|plain|); with +Inf in X column 1 at column 1 of
+    tile-column 100, a zero column of tile (0, 100), NaN (0 * Inf) for
+    NaN and Inf for Inf."""
+    csr = dense_edges_csr()
+    plan = TileSpMV(csr, device=device).device_plan()
+    d = plan.dense
+    nact = (d.meta[:, 0] >= 0).sum(dim=1).tolist()
+    assert 1 in nact and d.t_lanes in nact and plan.band is None
+    for k in (5, 8, 16):
+        x = np.random.default_rng(k).uniform(-1, 1, (csr.n, k)).astype(
+            np.float32)
+        xb = x.copy()
+        xb[100 * 16 + 1, 1] = np.inf
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, torch.from_numpy(xh).to(device))
+            ylen = reference.zero_y(plan, xp).shape[0]
+            before = kernels.launch_counts()["dense_spmm"]
+            yk = kernels.dense_spmm(d, xp, torch.zeros(ylen, k,
+                                                       device=device))
+            assert kernels.launch_counts()["dense_spmm"] == before + 1
+            for plain in (reference.dense_active_reference,
+                          reference.dense_reference):
+                yp = plain(d, xp, torch.zeros(ylen, k, device=device))
+                torch.cuda.synchronize()
+                assert bool(yp.isnan().any()) == (xh is xb)
+                assert bool(yp[:, 1].isinf().any()) == (xh is xb)
+                _agree(yk, yp, 1e-5)
+
+
 def test_spmm_probe_arms_match_plain_versions(device):
     """Every arm of scripts/spmm_probes at k = 8 on mixed_medium's stream
-    classes and W-classes: each held to its plain version within 1e-5 of
-    max(1, max|plain|) (inside ab_arms), then timed."""
-    csr = generate.get_matrix("mixed_medium")
-    plan = TileSpMV(csr, device=device).device_plan()
-    x = torch.from_numpy(np.random.default_rng(8).uniform(
-        -1, 1, (csr.n, 8)).astype(np.float32)).to(device)
-    xp = reference.pad_x(plan, x)
-    ylen = reference.zero_y(plan, xp).shape[0]
+    classes, W-classes and dense class and banded_medium's band class:
+    each held to its plain version within 1e-5 of max(1, max|plain|)
+    (inside ab_arms), then timed."""
+    x = {}
+    for name in ("mixed_medium", "banded_medium"):
+        csr = generate.get_matrix(name)
+        plan = TileSpMV(csr, device=device).device_plan()
+        xp = reference.pad_x(plan, torch.from_numpy(
+            np.random.default_rng(8).uniform(-1, 1, (csr.n, 8)).astype(
+                np.float32)).to(device))
+        x[name] = plan, xp, reference.zero_y(plan, xp).shape[0]
+    plan = x["mixed_medium"][0]
     streams = [st for st in (plan.stream, plan.stream2) if st is not None]
-    assert streams and plan.sparses
-    for run, classes, arms in (
-            (spmm_probes.run_stream, streams, spmm_probes.STREAM_ARMS),
-            (spmm_probes.run_sparse, list(plan.sparses),
-             spmm_probes.SPARSE_ARMS)):
+    assert streams and plan.sparses and plan.dense is not None
+    assert x["banded_medium"][0].band is not None
+    for name, run, classes, arms in (
+            ("mixed_medium", spmm_probes.run_stream, streams,
+             spmm_probes.STREAM_ARMS),
+            ("mixed_medium", spmm_probes.run_sparse, list(plan.sparses),
+             spmm_probes.SPARSE_ARMS),
+            ("mixed_medium", spmm_probes.run_dense, [plan.dense],
+             spmm_probes.DENSE_ARMS),
+            ("banded_medium", spmm_probes.run_band,
+             [x["banded_medium"][0].band], spmm_probes.BAND_ARMS)):
+        _, xp, ylen = x[name]
         res = run(classes, xp, ylen, rounds=1)
         assert list(res) == list(arms)
         assert all(r["ms"] > 0 for r in res.values())

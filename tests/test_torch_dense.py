@@ -6,7 +6,8 @@ reference's, with its derived arrays (`cmask`, `groups`) following meta
 and val; dense_active_reference (the active lane groups, each tile's
 nonzero columns) against dense_reference and tilespmv_tpu's Pallas dense
 kernel in interpret mode, and with an Inf in x; kernels.dense_launch's
-counts; the wrapper's checks of the derived arrays.
+counts (also of a dense_spmm.cu launch at k); the SpMV and SpMM
+wrappers' checks of the derived arrays.
 
 Tolerances: 1e-5 * max(1, max|y|) in f32; in f64 1e-12 * max(1, max|y|)
 against dense_reference (the same products added in another order) and
@@ -161,3 +162,39 @@ def test_dense_wrapper_checks_the_derived_arrays():
     with pytest.raises(TypeError):
         kernels.dense_spmv(dataclasses.replace(
             d, cmask=d.cmask.to(torch.int64)), x, y)
+
+
+def test_dense_spmm_wrapper_checks_the_derived_arrays():
+    """kernels.dense_spmm refuses a missing or mis-shaped `groups` or
+    `cmask`, as dense_spmv does: dense_spmm.cu reads both."""
+    _, _, plan = plans("f32")
+    d = plan.dense
+    x = reference.pad_x(plan, torch.zeros(plan.n, 4))
+    y = reference.zero_y(plan, x)
+    with pytest.raises(TypeError):
+        kernels.dense_spmm(dataclasses.replace(d, groups=None), x, y)
+    with pytest.raises(TypeError):
+        kernels.dense_spmm(dataclasses.replace(d, cmask=None), x, y)
+    with pytest.raises(ValueError):
+        kernels.dense_spmm(dataclasses.replace(d, cmask=d.cmask[:, :-1]),
+                           x, y)
+    with pytest.raises(ValueError):
+        kernels.dense_spmm(dataclasses.replace(
+            d, groups=d.groups.view(-1, 1)), x, y)
+    with pytest.raises(TypeError):
+        kernels.dense_spmm(dataclasses.replace(
+            d, groups=d.groups.to(torch.int64)), x, y)
+
+
+@pytest.mark.parametrize("k", [2, 8, 16])
+def test_dense_spmm_launch_counts(k):
+    """dense_spmm.cu's launch (kernels.dense_launch at k) has dense.cu's
+    grid, its value sectors and group indices, and k values in each
+    active tile's x block and y rows."""
+    _, _, plan = plans("f32")
+    d = plan.dense
+    one, got = kernels.dense_launch(d), kernels.dense_launch(d, k=k)
+    active = int((d.meta[:, 0] >= 0).sum())
+    assert {f: got[f] for f in got if f != "bytes"} == {
+        f: one[f] for f in one if f != "bytes"}
+    assert got["bytes"] - one["bytes"] == active * 2 * 16 * 4 * (k - 1)

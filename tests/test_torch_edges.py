@@ -10,7 +10,10 @@ NaN, Inf for Inf), the W-class by sparse_rows_reference (sparse.cu's
 walk) and sparse_reference, also through the wrapper on CPU tensors;
 and the W-class SpMM (sparse_spmm.cu's plain version, the rows form over
 X (n, k)) against the Pallas SpMM kernel, and with an Inf and a NaN in
-one column of X against the class's float64 CSR product.
+one column of X against the class's float64 CSR product; the band SpMM
+with an Inf and a NaN in one column of X against the Pallas band SpMM
+kernel, and the dense SpMM's plain version (dense.cu's walk) with an Inf
+at a zero column against dense_reference.
 
 Tolerance: max |torch - jax| <= 1e-5 * max(1, max|y|) over the finite
 entries (the f32 summation order differs)."""
@@ -31,7 +34,8 @@ from tilespmv_tpu_torch.ops.cuda.lane_plan import build_lane_plan
 
 from test_torch_cuda import (BAND_EDGES, INF_COL, NAN_COL,
                              SPARSE_EDGE_WIDTHS, check_band_edges,
-                             check_sparse_edges, sparse_edges_csr)
+                             check_sparse_edges, dense_edges_csr,
+                             sparse_edges_csr)
 from test_torch_plan import assert_same
 from test_torch_spmm import close_blocks, panels_k
 
@@ -136,4 +140,56 @@ def test_sparse_spmm_edges_match_interpret(width):
     before = kernels.launch_counts()
     np.testing.assert_array_equal(run(kernels.sparse_spmm, s, plan, xb),
                                   got)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", sorted(BAND_EDGES))
+def test_band_spmm_edges_match_interpret(name):
+    """band_spmm.cu's plain version (band_spmm_reference) on X (n, 3)
+    with +Inf and NaN in column 1 against band_spmm_call in interpret
+    mode: NaN for NaN and Inf for Inf in that column (every product is
+    taken, zeros included), the other columns finite; the wrapper on CPU
+    tensors runs the same plain version."""
+    csr = BAND_EDGES[name]()
+    jplan, plan = plans(csr)
+    check_band_edges(name, plan)
+    k = 3
+    x = np.random.default_rng(9).uniform(-1, 1, (csr.n, k)).astype(
+        np.float32)
+    x[INF_COL, 1], x[NAN_COL, 1] = np.inf, np.nan
+    got = run(reference.band_spmm_reference, plan.band, plan, x)
+    assert np.isfinite(got[:, [0, 2]]).all()
+    assert np.isnan(got[:, 1]).any() and np.isinf(got[:, 1]).any()
+    want = np.asarray(jk.band_spmm_call(jplan.band, panels_k(jplan, x),
+                                        jplan.n_windows, k, interpret=True))
+    for r in range(k):
+        agree(got[:, r], flat(want[16 * r: 16 * r + 16], got.shape[0]))
+    before = kernels.launch_counts()
+    np.testing.assert_array_equal(run(kernels.band_spmm, plan.band, plan, x),
+                                  got)
+    assert kernels.launch_counts() == before
+
+
+def test_dense_spmm_edges_take_every_product():
+    """dense_spmm.cu's plain version (dense_active_reference: the active
+    lane groups, each tile's nonzero columns) on X (n, 3) with +Inf in
+    column 1 at column 1 of tile-column 100, a zero column of tile
+    (0, 100) (test_torch_cuda.dense_edges_csr): NaN for NaN (0 * Inf)
+    and Inf for Inf as dense_reference, which takes every column, the
+    other columns finite and within TOL; the wrapper on CPU tensors runs
+    the same plain version."""
+    csr = dense_edges_csr()
+    _, plan = plans(csr)
+    k = 3
+    x = np.random.default_rng(10).uniform(-1, 1, (csr.n, k)).astype(
+        np.float32)
+    x[100 * 16 + 1, 1] = np.inf
+    got = run(reference.dense_active_reference, plan.dense, plan, x)
+    want = run(reference.dense_reference, plan.dense, plan, x)
+    assert np.isfinite(want[:, [0, 2]]).all()
+    assert np.isnan(want[:, 1]).any() and np.isinf(want[:, 1]).any()
+    agree(got.ravel(), want.ravel())
+    before = kernels.launch_counts()
+    np.testing.assert_array_equal(
+        run(kernels.dense_spmm, plan.dense, plan, x), got)
     assert kernels.launch_counts() == before

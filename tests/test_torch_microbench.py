@@ -261,6 +261,39 @@ def test_spmm_probes_edit_the_kernel_sources():
         assert o != src and o.count("{") == o.count("}")
 
 
+def test_spmm_probes_edit_the_band_and_dense_sources():
+    """Each band and dense copy of scripts/spmm_probes.py is band_spmm.cu
+    or dense_spmm.cu as it stands with one constant set (kRows 1, 2, 4;
+    every column block staged at once; each thread adding its own rows
+    into Y; 4 tile rows a dense block) or one line edited (a block for
+    every lane group, every column loaded, scalar atomics)."""
+    src = (build.CSRC_DIR / "band_spmm.cu").read_text()
+    out = {arm: e(src) for arm, e in spmm_probes.BAND_EDITS.items()}
+    assert spmm_probes.BAND_ARMS == ("kept", "rows1", "rows2", "rows4",
+                                     "stage_all", "y_adds")
+    for c in ("kRows = K <= 8 ? 4 : 2;", "kStages = 2;", "kYShared = 1;"):
+        assert f"constexpr int {c}" in src
+    for r in (1, 2, 4):
+        assert f"constexpr int kRows = {r};" in out[f"rows{r}"]
+    assert "constexpr int kStages = 8;" in out["stage_all"]
+    assert "constexpr int kYShared = 0;" in out["y_adds"]
+    for arm, o in out.items():
+        assert o.count("{") == o.count("}"), arm
+    src = (build.CSRC_DIR / "dense_spmm.cu").read_text()
+    out = {arm: e(src) for arm, e in spmm_probes.DENSE_EDITS.items()}
+    assert spmm_probes.DENSE_ARMS == ("kept", "all_groups", "all_columns",
+                                      "scalar_atomics", "warps4")
+    assert "constexpr int kWarps = 8;" in src
+    assert "constexpr int kWarps = 4;" in out["warps4"]
+    mask, table = "cmask[(long long)", "groups[blockIdx.x]"
+    assert mask in src and table in src
+    assert table not in out["all_groups"] and mask in out["all_groups"]
+    assert mask not in out["all_columns"] and table in out["all_columns"]
+    assert "#define VEC_ATOMICS 0\n" in out["scalar_atomics"]
+    for arm, o in out.items():
+        assert o != src and o.count("{") == o.count("}"), arm
+
+
 def test_edit_const_sets_the_one_definition():
     """build.edit_const rewrites `constexpr int <name> = ...;` whatever it
     holds, and refuses a source that defines the name never or twice."""

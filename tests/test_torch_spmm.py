@@ -2,7 +2,8 @@
 (tilespmv_tpu_torch/ops/cuda/reference.py) against
 tilespmv_tpu's fused Pallas SpMM kernels in interpret mode, on the
 identical plan (carried across by lane_plan_from_jax), for k in
-{2, 5, 16}; the SpMM wrappers' checks and CPU routing; and the plain
+{2, 5, 16}; the SpMM wrappers' checks and CPU routing; the band
+kernels' launch counts (kernels.band_launch); and the plain
 SpMM of a plan with stream classes at odd k against the golden. The
 W-class is in test_torch_spmm_sparse.py, the stream class in
 test_torch_spmm_stream.py, the operator in test_torch_spmm_slice.py.
@@ -71,14 +72,39 @@ def test_band_spmm_reference_matches_interpret(k):
 
 @pytest.mark.parametrize("k", KS)
 def test_dense_spmm_reference_matches_interpret(k):
+    """dense_spmm.cu's plain version (dense_active_reference: the active
+    lane groups, each tile's nonzero columns) and dense_reference on X
+    (n, k), both against one dense_spmm_call in interpret mode."""
     jplan, tplan = plans(generate.mixed_structure(1024, 1024, seed=9))
     assert tplan.dense is not None
+    assert ref.dense_spmm_reference is ref.dense_active_reference
     x = xs_for(jplan.n, k)
     want = np.asarray(jk.dense_spmm_call(jplan.dense, panels_k(jplan, x),
                                          jplan.n_windows, k,
                                          interpret=True))
-    close_blocks(run_torch_mm(ref.dense_spmm_reference, tplan.dense, tplan,
-                              x), want)
+    for plain in (ref.dense_active_reference, ref.dense_reference):
+        close_blocks(run_torch_mm(plain, tplan.dense, tplan, x), want)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_band_launch_counts(k):
+    """kernels.band_launch on banded_medium's band class (C = 3), counted
+    here lane by lane: a block per 32 lanes of a window; the brick, its
+    indices, each distinct x block once (16 rows of k values) and the
+    y rows read and written."""
+    _, plan = plans(generate.get_matrix("banded_medium"))
+    bd = plan.band
+    nch, C = bd.val.shape[0], bd.val.shape[1]
+    bloc, pb = bd.bloc.numpy().reshape(nch, 256), bd.pb.numpy()
+    tcs = {int(pb[w * bd.k_panels + ((bloc[w, t] + cb) >> 8)]) * 256
+           + ((int(bloc[w, t]) + cb) & 255)
+           for w in range(nch) for t in range(256) for cb in range(C)}
+    index = 4 * (bloc.size + pb.size + bd.cw.numel())
+    got = kernels.band_launch(bd, k=k)
+    assert got == dict(
+        blocks=nch * 8, val_bytes=bd.val.numel() * 4,
+        bytes=(bd.val.numel() * 4 + index + len(tcs) * 16 * 4 * k
+               + 2 * nch * 256 * 16 * 4 * k))
 
 
 def _cpu_plan():

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "tsp_dense_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "tsp_stream_f64": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_spmm": [_P] * 6 + [_I] * 4 + [_P],
-    "tsp_dense_spmm": [_P] * 6 + [_I] * 5 + [_P],
+    "tsp_dense_spmm": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "tsp_sparse_spmm": [_P] * 6 + [_I] * 6 + [_P],
     "tsp_stream2": [_P] * 10 + [_I] * 6 + [_P],
     "tsp_mb_gather": [_P] * 3 + [_I] * 2 + [_P],

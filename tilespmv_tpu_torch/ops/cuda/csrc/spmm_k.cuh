@@ -68,6 +68,54 @@ __device__ __forceinline__ void fma_row(float a,
   }
 }
 
+// v[r] = xr[r] for r < K, by the widest loads the row allows (shared or
+// global memory)
+template <int K>
+__device__ __forceinline__ void load_row(const float* __restrict__ xr,
+                                         float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < K; r += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + r);
+      v[r] = a.x;
+      v[r + 1] = a.y;
+      v[r + 2] = a.z;
+      v[r + 3] = a.w;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int r = 0; r < K; r += 2) {
+      const float2 a = *reinterpret_cast<const float2*>(xr + r);
+      v[r] = a.x;
+      v[r + 1] = a.y;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < K; ++r) v[r] = xr[r];
+  }
+}
+
+// yr[r] = v[r] for r < K, by the widest stores the row allows
+template <int K>
+__device__ __forceinline__ void store_row(float* __restrict__ yr,
+                                          const float (&v)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < K; r += 4) {
+      *reinterpret_cast<float4*>(yr + r) =
+          make_float4(v[r], v[r + 1], v[r + 2], v[r + 3]);
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int r = 0; r < K; r += 2) {
+      *reinterpret_cast<float2*>(yr + r) = make_float2(v[r], v[r + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < K; ++r) yr[r] = v[r];
+  }
+}
+
 // atomicAdd(yr + r, acc[r]) for r < K, V columns an atomicAdd: V = 4 or
 // 2 are sm_90's float4 / float2 atomicAdd in global memory (yr aligned
 // to V floats), V = 1 scalar ones (shared or global memory)

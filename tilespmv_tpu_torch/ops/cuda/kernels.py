@@ -30,7 +30,8 @@ import ctypes
 import torch
 
 from . import build
-from .lane_plan import DENSE_GROUP, ROW_WINDOW, LanePlan, sparse_meta_rows
+from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, LanePlan,
+                        sparse_meta_rows)
 from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         MB_SCATTER_ARMS, MB_SLABS, assemble, assemble_mm,
                         band_reference, band_spmm_reference,
@@ -44,9 +45,12 @@ from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
 # reference fuses (tilespmv_tpu/ops/spmv.py:84)
 SPMM_K = range(2, 17)
-# tile rows of one dense.cu block (its kWarps): a block is one lane group
-# of DENSE_GROUP tiles by DENSE_ROWS of the 16 rows
+# tile rows of one dense.cu and dense_spmm.cu block (their kWarps): a
+# block is one lane group of DENSE_GROUP tiles by DENSE_ROWS of the 16 rows
 DENSE_ROWS = 8
+# lanes of one band.cu and band_spmm.cu block (their kLanes), by all 16
+# rows
+BAND_GROUP = 32
 # slabs per block of the stream kernels (stream.cu, stream2.cu): a block
 # takes up to this many consecutive slabs of one step. 2 was the fastest
 # of {1, 2, 4, S} on the flagship stream classes of both dtypes, and
@@ -219,14 +223,16 @@ def stream_blocks(st, group: int = STREAM_GROUP) -> int:
     return st.cw.shape[0] * -(-st.s_batch // g)
 
 
-def dense_launch(d, table: bool = True) -> dict:
-    """One dense.cu launch on class `d` (tensors on any device): "blocks"
-    and "threads"; "active" tiles of "slots" lanes; "val_bytes", the
-    32-byte sectors of values that its warps load (a sector of lanes
+def dense_launch(d, table: bool = True, k: int = 1) -> dict:
+    """One dense.cu launch on class `d` (tensors on any device), or at
+    k > 1 one dense_spmm.cu launch (the same grid): "blocks" and
+    "threads"; "active" tiles of "slots" lanes; "val_bytes", the 32-byte
+    sectors of values that its warps load (a sector of lanes
     t..t+32/vbytes-1 of (c, j, i) wherever one of its lanes has column
     j), and "bytes", those plus the indices of each group (its entry,
     meta's two rows and cmask over its lanes), each active tile's x block
-    and its 16 y rows. `table` False: the arm over every lane group."""
+    and its 16 y rows, k values each. `table` False: the arm over every
+    lane group."""
     nch, T = d.val.shape[0], d.t_lanes
     vb = d.val.element_size()
     per = 32 // vb
@@ -237,10 +243,34 @@ def dense_launch(d, table: bool = True) -> dict:
     active = int((d.meta[:, 0] >= 0).sum())
     val_bytes = sectors * 16 * 32
     nbytes = (val_bytes + ng * (1 + 3 * DENSE_GROUP) * 4
-              + active * 2 * 16 * vb)
+              + active * 2 * 16 * vb * k)
     return dict(blocks=ng * (16 // DENSE_ROWS),
                 threads=ng * 16 * DENSE_GROUP, active=active,
                 slots=nch * T, val_bytes=val_bytes, bytes=nbytes)
+
+
+def band_launch(bd, k: int = 1) -> dict:
+    """One band.cu launch on class `bd` (tensors on any device), or at
+    k > 1 one band_spmm.cu launch (the same grid): "blocks", one for each
+    group of BAND_GROUP lanes of a window; "val_bytes", the brick (zeros
+    included); "bytes", the layout floor's bytes: the brick, bloc, pb and
+    cw, each distinct x block the class reads once (16 rows of k values)
+    and its y rows read and written (k values each)."""
+    nch, C = bd.val.shape[0], bd.val.shape[1]
+    vb = bd.val.element_size()
+    pb = bd.pb.view(nch, bd.k_panels).long()
+    loc = (bd.bloc.view(nch, 1, ROW_WINDOW).long()
+           + torch.arange(C, device=pb.device)[None, :, None])
+    tc = (pb.gather(1, (loc >> 8).view(nch, -1)) * PANEL_TC
+          + (loc & (PANEL_TC - 1)).view(nch, -1))
+    xblocks = int(torch.unique(tc).numel())
+    val_bytes = bd.val.numel() * vb
+    index = sum(t.numel() * t.element_size()
+                for t in (bd.bloc, bd.pb, bd.cw))
+    nbytes = (val_bytes + index + xblocks * 16 * vb * k
+              + 2 * nch * ROW_WINDOW * 16 * vb * k)
+    return dict(blocks=nch * ROW_WINDOW // BAND_GROUP, val_bytes=val_bytes,
+                bytes=nbytes)
 
 
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -313,7 +343,8 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
 
 
 def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Band class over the k columns of x (rows, k) into y (ylen, k)."""
+    """Band class over the k columns of x (rows, k) into y (ylen, k), every
+    product taken (band_reference)."""
     k = _check_xy_mm("band_spmm", x, y)
     nch, C = _check_band(bd, y.device)
     if not _use_kernel(y):
@@ -326,14 +357,18 @@ def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Dense class over the k columns of x (rows, k) into y (ylen, k)."""
+    """Dense class over the k columns of x (rows, k) into y (ylen, k); the
+    kernel runs the lane groups in `groups` and, in each tile, the
+    columns in its `cmask` (dense_active_reference)."""
     k = _check_xy_mm("dense_spmm", x, y)
     nch = _check_dense(d, y.device)
+    ng = _check_dense_derived(d, nch, y.device)
     if not _use_kernel(y):
         return dense_spmm_reference(d, x, y)
     err = build.load().tsp_dense_spmm(
-        _p(d.val), _p(d.meta), _p(d.pb), _p(d.cw), _p(x), _p(y),
-        nch, d.t_lanes, d.k_panels, d.c_batch, k, _stream())
+        _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
+        _p(d.cw), _p(x), _p(y), d.t_lanes, d.k_panels, d.c_batch, k,
+        _stream())
     _launched("dense_spmm", err)
     return y
 

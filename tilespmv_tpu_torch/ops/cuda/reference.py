@@ -119,7 +119,8 @@ def dense_reference(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def dense_active_reference(d, x: torch.Tensor,
                            y: torch.Tensor) -> torch.Tensor:
-    """Dense class as dense.cu walks it: only the DENSE_GROUP-lane groups
+    """Dense class as dense.cu and dense_spmm.cu walk it (the plain
+    version of dense_spmm, x (rows, k)): only the DENSE_GROUP-lane groups
     listed in `groups` (chunk*T + first lane), and in each active tile
     only the values of the columns j set in its `cmask` (the others
     taken as 0): y[(cw*256 + lrow)*16 + i] += sum_j val[c, j, i, t] *
@@ -138,13 +139,14 @@ def dense_active_reference(d, x: torch.Tensor,
     tc = (d.pb.view(-1, d.k_panels).long()[step, loc >> 8] * PANEL_TC
           + (loc & (PANEL_TC - 1)))
     j = torch.arange(_B, device=dev)
-    xg = x[tc[..., None] * _B + j]                        # (ng, 32, 16j)
+    xg = x[tc[..., None] * _B + j]                        # (ng, 32, 16j[, k])
     on = ((d.cmask[c, lane].long()[..., None] >> j) & 1).bool()
-    v = d.val[c, :, :, lane]                              # (ng, 32, j, i)
-    yc = (torch.where(on[..., None], v, 0) * xg[..., None]).sum(dim=2)
+    v = torch.where(on[..., None], d.val[c, :, :, lane], 0)  # (ng, 32, j, i)
+    yc = (_rhs(v, x) * xg[:, :, :, None]).sum(dim=2)     # (ng, 32, i[, k])
     rows = ((d.cw.long()[step] * ROW_WINDOW + d.meta[c, 1, lane].long())
             * _B)[..., None] + j
-    return y.index_add_(0, rows[act].reshape(-1), yc[act].reshape(-1))
+    return y.index_add_(0, rows[act].reshape(-1),
+                        yc[act].reshape((-1,) + x.shape[1:]))
 
 
 def _sparse_rend(s) -> torch.Tensor:
@@ -279,10 +281,11 @@ def stream_rows_reference(st, x: torch.Tensor,
 
 # The class versions above take k right-hand sides as well: they are the
 # plain versions of the fused SpMM kernels (band_spmm.cu, dense_spmm.cu,
-# sparse_spmm.cu; stream2.cu's is stream_rows_reference). The W-class's is
-# the rows form, as its kernel sums each row's own slots.
+# sparse_spmm.cu; stream2.cu's is stream_rows_reference). The dense
+# class's is dense.cu's walk (the active groups and columns), the
+# W-class's the rows form, as their kernels walk them.
 band_spmm_reference = band_reference
-dense_spmm_reference = dense_reference
+dense_spmm_reference = dense_active_reference
 sparse_spmm_reference = sparse_rows_reference
 
 

@@ -49,19 +49,23 @@ _MASK = ("  const unsigned mask = active ? cmask[(long long)c * t_lanes + t0"
 _GROUP = "  const int g = groups[blockIdx.x];\n"
 
 
-def _no_mask(src: str) -> str:
+def no_mask(src: str) -> str:
+    """dense.cu or dense_spmm.cu with every tile's mask taken as all 16
+    columns."""
     return build.edit_once(src, _MASK,
                            "  const unsigned mask = active ? 0xFFFFu : 0u;\n")
 
 
-def _every_group(src: str) -> str:
+def every_group(src: str) -> str:
+    """dense.cu or dense_spmm.cu with a block for every lane group in
+    place of the group list."""
     return build.edit_once(src, _GROUP,
                            "  const int g = blockIdx.x * kLanes;\n")
 
 
 # arm: the edit of dense.cu (groups+mask: none)
-EDITS = {"groups": _no_mask, "all+mask": _every_group,
-         "all": lambda src: _every_group(_no_mask(src))}
+EDITS = {"groups": no_mask, "all+mask": every_group,
+         "all": lambda src: every_group(no_mask(src))}
 ARMS = ("groups+mask", *EDITS)
 
 
