@@ -95,6 +95,20 @@ Phases, each fatal on failure:
    variant's operations over the FP32 peak, its inputs once over the
    launch); no one PyTorch call computes a step, so these rows have no
    library call.
+10. entry points — the command-line tool `tilespmv_tpu_torch.cli.main`
+   as a user runs it, the launch counters reset before each call, each
+   call fatal unless it exits 0: mixed_large with --profile,
+   --save-plan, --save-tiles and a results CSV (errcount = 0 and PASS
+   printed; dense, sparse and stream launched; the CSV then holds one
+   row of the reference schema name,m,n,nnz,ms,gflops); --load-plan of
+   that plan file (PASS), and `TileSpMV.from_plan(load_lane_plan(...))`
+   on the card within KERNEL_TOL of phase 3's mixed_large y; banded_large
+   with --dtype f64 (band_f64 launched, a second CSV row); `op.T(y)`
+   and `op.rmatvec(y)` on tall_rect (131072 x 4096) against the float64
+   A^T y with phase 3's gates, and `op.T.T is op`; the examples on the
+   card (tilespmv_tpu_torch/examples: CG error < 1e-4, PageRank error
+   < 1e-6, tests/test_examples.py's bounds). Each CLI line is printed,
+   and the phase's seconds.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
@@ -876,6 +890,100 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
     return results
 
 
+def run_cli(card, args: list, launched=()) -> str:
+    """`cli.main(args)` with the launch counters reset just before; its
+    output, each line printed. Fails unless it exits 0 and every kernel
+    of `launched` launched."""
+    import contextlib
+    import io
+    import torch
+    from tilespmv_tpu_torch import cli
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    out, cnt = buf.getvalue(), kernels.launch_counts()
+    for line in out.splitlines():
+        log(f"cli: {line}" + (f" [{card}]" if "ms" in line else ""))
+    log(f"cli {' '.join(args)}: exit {rc} in {time.perf_counter() - t0:.1f}"
+        f" s, launches {json.dumps({k: v for k, v in cnt.items() if v})}")
+    if rc != 0:
+        raise AssertionError(f"cli {args}: exit {rc}")
+    missing = [k for k in launched if not cnt[k]]
+    if missing:
+        raise AssertionError(f"cli {args}: {missing} never launched")
+    return out
+
+
+def entry_points_phase(dev, card, y_mixed, repo) -> None:
+    """Phase 10 (see the module doc); `y_mixed` is phase 3's y of
+    mixed_large."""
+    import tempfile
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.core.serialize import load_lane_plan
+    from tilespmv_tpu_torch.examples import cg, pagerank
+    from tilespmv_tpu_torch.io import generate
+    from tilespmv_tpu_torch.utils.host import csr_transpose
+    t_phase = time.perf_counter()
+    build = repo / "build"
+    build.mkdir(exist_ok=True)
+    iters = ["--iters", "20", "--reps", "3"]
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        plan, tiles, csv = (str(pathlib.Path(d) / f) for f in (
+            "plan.npz", "tiles.npz", "results.csv"))
+        out = run_cli(card, ["mixed_large", "--profile", "--save-plan", plan,
+                             "--save-tiles", tiles, "--csv", csv] + iters,
+                      ("dense", "sparse", "stream"))
+        if "errcount = 0" not in out or "PASS!" not in out:
+            raise AssertionError("cli mixed_large: no errcount = 0 / PASS!")
+        rows = pathlib.Path(csv).read_text().splitlines()
+        if len(rows) != 1 or rows[0].split(",")[:4] != [
+                "mixed_large", "65536", "65536", "1113972"] \
+                or len(rows[0].split(",")) != 6:
+            raise AssertionError(f"cli results CSV: {rows}")
+        out = run_cli(card, ["--load-plan", plan, "mixed_large", "--csv",
+                             ""] + iters, ("dense", "sparse", "stream"))
+        if "PASS!" not in out:
+            raise AssertionError("cli --load-plan mixed_large: no PASS!")
+        op = TileSpMV.from_plan(load_lane_plan(plan), device=dev)
+        y = op(bench_x(op.shape[1]))
+        err = float((y - y_mixed).abs().max())
+        bound = KERNEL_TOL * max(1.0, float(y_mixed.abs().max()))
+        if not err <= bound:
+            raise AssertionError(f"from_plan mixed_large: max |y - phase 3 "
+                                 f"y| {err:.3e} > {bound:.3e}")
+        log(f"from_plan(load_lane_plan) mixed_large: max |y - phase 3 y| "
+            f"{err:.3e} (bound {bound:.3e})")
+        run_cli(card, ["banded_large", "--dtype", "f64", "--csv", csv]
+                + iters, ("band_f64",))
+        rows = pathlib.Path(csv).read_text().splitlines()
+        if len(rows) != 2 or not rows[1].startswith("banded_large,"):
+            raise AssertionError(f"cli results CSV: {rows}")
+
+    csr = generate.get_matrix("tall_rect")
+    op = TileSpMV(csr, device=dev)
+    y = bench_x(csr.m)
+    want = golden(csr_transpose(csr), y)
+    gate("tall_rect .T", op.T(y).cpu().numpy(), want)
+    gate("tall_rect rmatvec", op.rmatvec(y).cpu().numpy(), want)
+    if op.T.T is not op:
+        raise AssertionError("tall_rect: op.T.T is not op")
+    log(f"tall_rect ({csr.m} x {csr.n}) .T and rmatvec: ok, A^T "
+        f"{op.T.shape}, {json.dumps(op.T.summary['classes'])}")
+
+    err = cg.main(device=dev)
+    if not err < 1e-4:
+        raise AssertionError(f"CG example: error {err:.3e}")
+    err = pagerank.main(device=dev)
+    if not err < 1e-6:
+        raise AssertionError(f"PageRank example: error {err:.3e}")
+    log(f"phase 10 (entry points): {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -984,6 +1092,8 @@ def main() -> int:
                     **{(n, "f64"): ops64[n] for n in FLAGSHIP}},
         {**{(n, "f32"): f32_ms[n] for n in FLAGSHIP},
          **{(n, "f64"): f64_ms[n] for n in FLAGSHIP}})
+
+    entry_points_phase(dev, card, ys["mixed_large"], repo)
 
     log(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

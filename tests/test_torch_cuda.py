@@ -4,8 +4,9 @@ SpMV and SpMM kernels also on a class with a one-lane chunk and a full
 one, the band SpMV kernel at C = 1 and 3 and the band SpMM kernel at
 C = 1, 3 and 7, the W-class SpMV and SpMM kernels at W = 16, 24 and 96
 on edge-case tiles, each with a non-finite x, and the probe scripts' A/B
-arms), the operator against the float64 golden, and
-`profile_engines` and `trace_context` on a CUDA operator.
+arms), the operator against the float64 golden, `profile_engines` and
+`trace_context` on a CUDA operator, `from_plan` on a loaded plan file,
+`.T` on a rectangular matrix, and the bench harness's CUDA-graph time.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
@@ -715,3 +716,55 @@ def test_trace_context_traces_the_kernels(tmp_path, device):
     dev_us = [e.self_device_time_total for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert dev_us and sum(dev_us) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_from_plan_on_a_loaded_plan(dtype, tmp_path, device):
+    from tilespmv_tpu_torch.core.serialize import (load_lane_plan,
+                                                   save_lane_plan)
+    csr = generate.get_matrix("mixed_medium")
+    op = TileSpMV(csr, device=device, dtype=dtype)
+    p = str(tmp_path / "plan.npz")
+    save_lane_plan(p, op.device_plan())
+    op2 = TileSpMV.from_plan(load_lane_plan(p), device=device, dtype=dtype)
+    assert op2.device.type == "cuda" and op2.shape == op.shape
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, csr.n)).to(device)
+    y, y2 = op(x), op2(x)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((y - y2).abs().max()) <= tol * max(1.0,
+                                                    float(y.abs().max()))
+
+
+def test_transpose_on_a_rectangular_archetype(device):
+    from tilespmv_tpu_torch.utils.host import csr_transpose
+    csr = generate.rectangular(16384, 1024, 8, seed=23)
+    op = TileSpMV(csr, device=device)
+    assert op.T.T is op and op.T.device.type == "cuda"
+    y = _bench_x(csr.m)
+    want = csr_transpose(csr).matvec(y.astype(np.float64))
+    for got in (op.T(y), op.rmatvec(y)):
+        assert got.shape == (csr.n,)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-4,
+                                   atol=1e-4)
+
+
+def test_benchmark_op_graph_time_within_eager_time(device):
+    from tilespmv_tpu_torch.bench import harness, roofline
+    op = TileSpMV(generate.get_matrix("mixed_medium"), device=device)
+    x = torch.from_numpy(_bench_x(op.shape[1])).to(device)
+    before = kernels.launch_counts()["dense"]
+    op(x)
+    per_call = kernels.launch_counts()["dense"] - before
+    assert per_call
+    before += per_call
+    res = harness.benchmark_op(op, name="mixed_medium", warmup=2,
+                               timed_reps=5, iters_per_rep=20)
+    assert res.chip == roofline.detect_chip() and res.backend == "cuda"
+    assert np.isfinite(res.ms) and 0 < res.ms <= res.eager_ms
+    assert res.gflops == pytest.approx(2 * op.nnz / res.ms / 1e6)
+    # a launch is counted where a call is issued: the warm-up call, the
+    # 20 captured ones and the eager ones (2 warm-up, 5 timed rounds of
+    # 20), none per replay of the graph
+    assert kernels.launch_counts()["dense"] - before == \
+        per_call * (1 + 20 * (1 + 2 + 5))

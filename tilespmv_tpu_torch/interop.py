@@ -10,8 +10,11 @@ val + val_lo) in the f32 layout, and the segmented-scan planes
 (`segmask`) are dropped. Stream classes gain this package's per-entry
 rows (`erow`), derived from their planes, and the dense class its
 column masks and active lane groups (`cmask`, `groups`), derived from
-its values and meta. This module imports nothing of JAX: the caller
-passes the object in.
+its values and meta; a source that already holds them (a plan file this
+package wrote, core/serialize.py) keeps its own. Any object with the
+reference's field names converts, so core/serialize.py loads plan files
+of either package through this one conversion. This module imports
+nothing of JAX: the caller passes the object in.
 """
 from __future__ import annotations
 
@@ -27,15 +30,15 @@ from .ops.plan import ResidualEngine
 
 def _convert(cls, obj, **override):
     """Instance of the dataclass `cls` from the same-named fields of
-    `obj`; array fields go through np.asarray, static ones as they are;
-    `override` replaces fields."""
+    `obj` (None where `obj` has no such field); array fields go through
+    np.asarray, static ones as they are; `override` replaces fields."""
     if obj is None:
         return None
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name in override:
             continue
-        v = getattr(obj, f.name)
+        v = getattr(obj, f.name, None)
         kw[f.name] = v if v is None or isinstance(
             v, (bool, int, str)) else np.asarray(v)
     kw.update(override)
@@ -53,7 +56,8 @@ def _f64(*parts) -> np.ndarray:
 def stream_chunks_from_jax(st) -> StreamChunks:
     """This package's StreamChunks holding `st`'s arrays (rounds scatter
     only; a df64 class as f64 values val + val_lo), with the per-entry
-    rows `erow` derived from its planes; None for None."""
+    rows `erow` derived from its planes where `st` has none; None for
+    None."""
     if st is None:
         return None
     if st.scatter != "rounds":
@@ -62,19 +66,24 @@ def stream_chunks_from_jax(st) -> StreamChunks:
     if not st.df64:
         if st.segmask is not None:
             raise NotImplementedError("segmask on an f32 stream class")
-        return with_entry_rows(_convert(StreamChunks, st, erow=None))
-    return with_entry_rows(_convert(StreamChunks, st, erow=None,
-                                    val=_f64(st.val, st.val_lo)))
+        out = _convert(StreamChunks, st)
+    else:
+        out = _convert(StreamChunks, st, val=_f64(st.val, st.val_lo))
+    return out if out.erow is not None else with_entry_rows(out)
 
 
 def _dense(d):
     if d is None:
         return None
-    derived = dict(cmask=None, groups=None)
     if d.df64:
         v = np.asarray(d.val)
-        derived["val"] = _f64(v[:, 0::3], v[:, 1::3], v[:, 2::3])
-    return with_dense_derived(_convert(DenseChunks, d, **derived))
+        out = _convert(DenseChunks, d,
+                       val=_f64(v[:, 0::3], v[:, 1::3], v[:, 2::3]))
+    else:
+        out = _convert(DenseChunks, d)
+    if out.cmask is None or out.groups is None:
+        out = with_dense_derived(out)
+    return out
 
 
 def _band(bd):

@@ -21,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from ..bench import roofline
 from ..ops.cuda import kernels, reference
 from ..ops.cuda.lane_plan import BandChunks
 
@@ -94,10 +95,11 @@ def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
     return float(np.median(ts))
 
 
-# H100 SXM peaks at its 700 W limit (NVIDIA's data sheet): HBM3 bytes/s,
-# and FLOP/s outside the tensor cores by value size (FP32, FP64)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {4: 67e12, 8: 34e12}
+# H100 SXM peaks at its 700 W limit (bench/roofline.py's table): HBM3
+# bytes/s, and FLOP/s outside the tensor cores by value size (FP32, FP64)
+HBM_BYTES_PER_S = roofline.HBM_GBPS["h100_sxm"] * 1e9
+PEAK_FLOPS = {vb: g * 1e9
+              for vb, g in roofline.PEAK_GFLOPS["h100_sxm"].items()}
 
 
 def csr_bound(nnz: int, rows: int, cols: int, vbytes: int,
