@@ -108,7 +108,31 @@ Phases, each fatal on failure:
    A^T y with phase 3's gates, and `op.T.T is op`; the examples on the
    card (tilespmv_tpu_torch/examples: CG error < 1e-4, PageRank error
    < 1e-6, tests/test_examples.py's bounds). Each CLI line is printed,
-   and the phase's seconds.
+   and the phase's seconds;
+11. bf16 — the trio planned through `TileSpMV(csr, device="cuda",
+   dtype=torch.bfloat16)` (the f32 plan with bf16 values), plan MB and
+   classes printed; with the launch counters reset just before, one
+   `op(x)` per matrix with bench.py's x and one `op.matmat(X)` at k = 8
+   (bench_xs): every bf16 kernel (band_bf16, dense_bf16, sparse_bf16,
+   stream_bf16 and the four SpMM ones) must have launched, and y and
+   every column of Y must pass max |y - golden| <= 2^-8 |golden| + 1e-6
+   element by element against the float64 golden (the values and x are
+   quarters, so every f32 sum is exact and only y's one rounding to bf16
+   remains); then each bf16 kernel against its plain version on its f32
+   y (KERNEL_TOL, x rounded to bf16) as in phases 4 and 7, with its
+   time, launches per call, the bound (2-byte values, f32 x and y), the
+   plain version's time, the f32 kernel's time from phase 4 or 7 beside
+   it, and two cuSPARSE calls: the library time, f32 on the
+   bf16-rounded nonzeros (the function the kernels compute, held to the
+   plain version), and a bf16 `torch.sparse_csr_tensor` product beside
+   it (its error printed, not gated: cuSPARSE sums bf16 at lower
+   precision than the kernels; where torch raises, its error is
+   printed); end to end per matrix, bf16 ms per
+   SpMV (cuda_ms, as phase 5 times it, x held in bf16) between two
+   timings of the f32 operator (x in f32), the device ms per bf16 call
+   under `trace_context` and its busy share, and matmat at k = 8 against
+   8 SpMV calls; and the CLI with `--dtype bf16` on banded_large (PASS,
+   band_bf16 launched).
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
@@ -135,6 +159,8 @@ GOLD_RTOL, GOLD_ATOL = 2e-4, 1e-4
 # max |y - golden| / (1 + |A|·|x|) against the float64 golden
 KERNEL_TOL_F64 = 1e-12
 GOLD_TOL_F64 = 1e-12
+# bf16 y against the float64 golden: rtol (y's one rounding) and atol
+BF16_GOLD_RTOL, BF16_GOLD_ATOL = 2.0 ** -8, 1e-6
 _SRC = "tilespmv_tpu_torch/ops/cuda/csrc/"
 _TPU = "tilespmv_tpu/ops/pallas/kernels.py:"
 # name: (source, TPU kernel it replaces, matrix whose plan runs it)
@@ -157,6 +183,25 @@ F64_KERNELS = {
     "dense_f64": (_SRC + "dense.cu", _TPU + "378", ("mixed_large",)),
     "stream_f64": (_SRC + "stream.cu", _TPU + "1926",
                    ("powerlaw_large", "mixed_large")),
+}
+# the bf16 kernels: (source, TPU kernel it replaces with bf16 values and
+# f32 sums, matrices whose plans run it), SpMV then SpMM at K_MM
+BF16_KERNELS = {
+    "band_bf16": (_SRC + "band.cu", _TPU + "772", ("banded_large",)),
+    "dense_bf16": (_SRC + "dense.cu", _TPU + "679", ("mixed_large",)),
+    "sparse_bf16": (_SRC + "sparse.cu", _TPU + "724", ("mixed_large",)),
+    "stream_bf16": (_SRC + "stream.cu", _TPU + "1853",
+                    ("powerlaw_large", "mixed_large")),
+}
+BF16_SPMM_KERNELS = {
+    "band_spmm_bf16": (_SRC + "band_spmm.cu", _TPU + "860",
+                       ("banded_large",)),
+    "dense_spmm_bf16": (_SRC + "dense_spmm.cu", _TPU + "1015",
+                        ("mixed_large",)),
+    "sparse_spmm_bf16": (_SRC + "sparse_spmm.cu", _TPU + "1042",
+                         ("mixed_large",)),
+    "stream2_bf16": (_SRC + "stream2.cu", _TPU + "1555",
+                     ("powerlaw_large",)),
 }
 # the microbenchmark kernels: (source, TPU kernel it replaces)
 MB_KERNELS = {
@@ -254,6 +299,9 @@ def class_lists(plan) -> dict:
                "sparse_spmm": cl["sparse"], "stream2": cl["stream"],
                "band_f64": cl["band"], "dense_f64": cl["dense"],
                "stream_f64": cl["stream"]})
+    cl.update({k + "_bf16": cl[k] for k in (
+        "band", "dense", "sparse", "stream", "band_spmm", "dense_spmm",
+        "sparse_spmm", "stream2")})
     return cl
 
 
@@ -267,9 +315,10 @@ def gate_mm(name: str, csr, y: np.ndarray, x: np.ndarray) -> None:
 
 # plan fields a kernel does not read: the stream kernels read erow and
 # not the round planes; the dense kernels not cfirst
-_UNREAD = {"stream": ("planes", "cfirst"), "stream_f64": ("planes", "cfirst"),
-           "stream2": ("planes", "cfirst"), "dense": ("cfirst",),
-           "dense_f64": ("cfirst",), "dense_spmm": ("cfirst",)}
+_UNREAD = {**{k: ("planes", "cfirst") for k in (
+    "stream", "stream_f64", "stream2", "stream_bf16", "stream2_bf16")},
+    **{k: ("cfirst",) for k in (
+        "dense", "dense_f64", "dense_spmm", "dense_bf16", "dense_spmm_bf16")}}
 # the stream kernel's slabs per block tried in phases 4 and 8 (S: all of
 # a step's slabs, the wrapper clamping the group to S)
 STREAM_GROUPS = {"1": 1, "2": 2, "4": 4, "S": 1 << 30}
@@ -323,25 +372,30 @@ def compare_kernels(dev, card, table, wrap, plain, ops, csrs, launches,
             plain_ms=r0["plain_ms"], bound_ms=r0["bound_ms"],
             bound_by=r0["bound_by"], library_ms=r0["library_ms"],
             library="torch.sparse_csr_tensor (cuSPARSE) " + (
-                "mv" if k is None else "mm"),
+                "mv" if k is None else "mm") + (
+                ", f32 on the bf16 values" if kname.endswith("_bf16")
+                else ""),
             share_of_bound=r0["bound_ms"] / r0["ms"],
             kernel_over_library=r0["ms"] / r0["library_ms"]))
-        for f in ("ms_by_group", "by_class", "ab"):
+        for f in ("ms_by_group", "by_class", "ab", "library_bf16_ms",
+                  "library_bf16_err", "library_bf16_error"):
             if f in r0:
                 results[-1][f] = r0[f]
         if len(runs) > 1:
             results[-1]["by_matrix"] = {
                 m: {f: r[f] for f in ("ms", "call_ms", "plain_ms",
-                                      "bound_ms", "library_ms", "by_class")
+                                      "bound_ms", "library_ms",
+                                      "library_bf16_ms", "by_class")
                     if f in r}
                 for m, r in zip(mnames, runs)}
     return results
 
 
-def library_mats(classes, xp, ylen: int) -> list:
+def library_mats(classes, xp, ylen: int, dtype) -> list:
     """One torch sparse CSR matrix per class on xp's device: the class's
-    nonzeros (reference.class_coo), int32 indices, shape (ylen, rows of
-    xp). The yardstick's input only: the port never calls it."""
+    nonzeros (reference.class_coo) as `dtype`, int32 indices, shape
+    (ylen, rows of xp). The yardstick's input only: the port never calls
+    it."""
     import torch
     from tilespmv_tpu_torch.ops.cuda import reference
     mats = []
@@ -353,20 +407,38 @@ def library_mats(classes, xp, ylen: int) -> list:
         mats.append(torch.sparse_csr_tensor(
             torch.from_numpy(crow.astype(np.int32)).to(xp.device),
             torch.from_numpy(col[order].astype(np.int32)).to(xp.device),
-            torch.from_numpy(val[order]).to(xp.device),
+            torch.from_numpy(val[order]).to(xp.device, dtype),
             size=(ylen, xp.shape[0])))
     return mats
+
+
+def library_ms(kname: str, lib) -> float:
+    """The library call's device time: graph_ms, or CUDA events where
+    cuSPARSE refuses the graph capture."""
+    from tilespmv_tpu_torch.utils import profiling
+    try:
+        return profiling.graph_ms(lib)
+    except RuntimeError as e:
+        log(f"library {kname}: no graph capture ({e}); timed by events")
+        return cuda_ms(lib, iters=20)
 
 
 def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
                tol) -> dict:
     """compare_kernels on one matrix: {"err", "ms", "plain_ms",
     "bound_ms", "bound_by", "library_ms"} (and the stream kernel's
-    "ms_by_group"). The bound is utils.profiling.class_bound over the
-    classes' nonzeros at k; the library call is
-    one cuSPARSE SpMV (`torch.mv`) or SpMM (`@`) per class on
-    library_mats, checked against the plain version within `tol` and
-    timed the same way as the kernel."""
+    "ms_by_group"). x is rounded to the plan's value dtype (bf16 for a
+    bf16 plan, as the operator rounds it) and padded in its compute
+    dtype. The bound is utils.profiling.class_bound over the classes'
+    nonzeros at k; the library call is one cuSPARSE SpMV (`torch.mv`) or
+    SpMM (`@`) per class on library_mats in the plan's compute dtype
+    (for a bf16 plan: float32 on the bf16-rounded values, the function
+    the kernels compute), checked against the plain version within
+    `tol`, and timed the same way as the kernel. A bf16 plan also runs
+    the same product on bf16 values and x (y in bf16, a coarser
+    function): its time in "library_bf16_ms" and its max error against
+    the plain version in "library_bf16_err", not gated; where torch
+    raises on it, "library_bf16_error" holds the error."""
     import torch
     from tilespmv_tpu_torch.ops.cuda import kernels, reference
     from tilespmv_tpu_torch.utils import profiling
@@ -376,7 +448,7 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
         raise AssertionError(f"{mname}'s plan has no {kname} class")
     rhs = () if k is None else (k,)
     xr = np.random.default_rng(0).uniform(-1, 1, (csr.n,) + rhs)
-    xp = reference.pad_x(plan, torch.from_numpy(xr).to(dev))
+    xp = reference.pad_x(plan, torch.from_numpy(xr).to(dev, plan.dtype))
     ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
     yk = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
     yp = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
@@ -401,14 +473,27 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     out = {"err": err}
     # the library call on the same inputs, before the timing loops below
     # add into yk and yp again
-    mats = library_mats(classes, xp, ylen)
-
-    def lib():
-        return sum(torch.mv(a, xp) if k is None else a @ xp for a in mats)
+    def product(mats, xl):
+        return lambda: sum(torch.mv(a, xl) if k is None else a @ xl
+                           for a in mats)
+    mats = library_mats(classes, xp, ylen, xp.dtype)
+    lib = product(mats, xp)
     lerr = float((lib() - yp).abs().max())
     if not lerr <= bound:
         raise AssertionError(f"{kname}: max |library - plain| {lerr:.3e}"
                              f" > {bound:.3e}")
+    lib16 = None
+    if plan.dtype == torch.bfloat16:
+        try:
+            lib16 = product(library_mats(classes, xp, ylen, plan.dtype),
+                            xp.to(plan.dtype))
+            out["library_bf16_err"] = float((lib16() - yp).abs().max())
+        except (RuntimeError, NotImplementedError) as e:
+            lib16 = None
+            out["library_bf16_error"] = (f"{type(e).__name__}: "
+                                         f"{e}").splitlines()[0]
+            log(f"library {kname}: torch refuses the bf16 product "
+                f"({out['library_bf16_error']})")
     if kname in ("stream", "stream_f64"):
         out["ms_by_group"] = {}
         for g, group in STREAM_GROUPS.items():
@@ -433,12 +518,9 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     # the yardstick: the bound, and the library call's time
     bnd = profiling.class_bound(classes, k=1 if k is None else k)
     out.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
-    try:
-        lib_ms = profiling.graph_ms(lib)
-    except RuntimeError as e:     # cuSPARSE refused the graph capture
-        log(f"library {kname}: no graph capture ({e}); timed by events")
-        lib_ms = cuda_ms(lib, iters=20)
-    out["library_ms"] = lib_ms
+    lib_ms = out["library_ms"] = library_ms(kname, lib)
+    if lib16 is not None:
+        out["library_bf16_ms"] = library_ms(kname, lib16)
     if kname in ("stream", "stream_f64"):
         out["by_class"] = [stream_class_line(
             card, kname, mname, i, c, mats[i], xp, yk, wrap[kname])
@@ -449,6 +531,13 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
     if kname in ("band_spmm", "dense_spmm"):
         spmm_launch_line(card, kname, mname, classes[0], k, ms, bnd, lib_ms)
     mb = sum(class_bytes(c, kname) for c in classes) / 1e6
+    lib_txt = (f"library {lib_ms:.4f} ms (max abs err {lerr:.3e}), kernel /"
+               f" library {ms / lib_ms:.2f}")
+    if "library_bf16_ms" in out:
+        lib_txt += (f"; bf16 library {out['library_bf16_ms']:.4f} ms (max "
+                    f"abs err {out['library_bf16_err']:.3e})")
+    elif "library_bf16_error" in out:
+        lib_txt += f"; bf16 library: {out['library_bf16_error']}"
     log(f"kernel {kname} on {mname} ({len(classes)} class(es), "
         f"{mb:.1f} MB of plan read, launches +{delta}"
         f"{'' if k is None else f', k {k}'}): max abs err {err:.3e} "
@@ -457,9 +546,7 @@ def compare_on(dev, card, kname, wrap, plain, op, csr, mname, k,
         f"host time) vs plain {plain_ms:.4f} ms; bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
         f"({bnd['bytes'] / 1e6:.2f} MB, {bnd['flops'] / 1e6:.2f} MFLOP), "
-        f"share of bound {bnd['bound_ms'] / ms:.3f}; library "
-        f"{lib_ms:.4f} ms (max abs err {lerr:.3e}), kernel / library "
-        f"{ms / lib_ms:.2f} [{card}]")
+        f"share of bound {bnd['bound_ms'] / ms:.3f}; {lib_txt} [{card}]")
     return out
 
 
@@ -984,6 +1071,140 @@ def entry_points_phase(dev, card, y_mixed, repo) -> None:
         f"[{card}]")
 
 
+def gate_bf16(name: str, y, ref: np.ndarray) -> float:
+    """max |y - golden| <= BF16_GOLD_RTOL |golden| + BF16_GOLD_ATOL
+    element by element for a bf16 y (tensor) against the float64 golden;
+    returns max |y - golden| / max(1, |golden|)."""
+    import torch
+    if y.dtype != torch.bfloat16 or tuple(y.shape) != ref.shape:
+        raise AssertionError(f"{name}: y {y.dtype} {tuple(y.shape)}")
+    y = y.float().cpu().numpy().astype(np.float64)
+    if not np.isfinite(y).all():
+        raise AssertionError(f"{name}: non-finite y")
+    err = np.abs(y - ref)
+    bad = err > BF16_GOLD_RTOL * np.abs(ref) + BF16_GOLD_ATOL
+    if bad.any():
+        i = int(np.argmax(bad))
+        raise AssertionError(f"{name}: bf16 gate failed on {int(bad.sum())}"
+                             f" rows; row {i}: {y[i]} vs {ref[i]}")
+    return float(np.max(err / np.maximum(1.0, np.abs(ref))))
+
+
+def bf16_phase(dev, card, csrs, ops32, f32_results) -> list:
+    """Phase 11 (see the module doc); `ops32` are phase 2's f32
+    operators and `f32_results` phases 4 and 7's kernel entries. Returns
+    the bf16 kernels' results."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    from tilespmv_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    ops = {}
+    for name in FLAGSHIP:
+        t0 = time.perf_counter()
+        ops[name] = TileSpMV(csrs[name], device=dev, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        log(f"plan bf16 {name}: convert+plan+upload "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{ops[name].summary['plan_mbytes']} MB, "
+            f"{json.dumps(ops[name].summary['classes'])}")
+
+    # main path: op(x) and matmat at K_MM, counters reset just before
+    xs = {n: bench_x(csrs[n].n) for n in FLAGSHIP}
+    xms = {n: bench_xs(csrs[n].n, K_MM) for n in FLAGSHIP}
+    xd = {n: torch.from_numpy(xs[n]).to(dev) for n in FLAGSHIP}
+    xmd = {n: torch.from_numpy(xms[n]).to(dev) for n in FLAGSHIP}
+    kernels.reset_launch_counts()
+    ys = {n: ops[n](xd[n]) for n in FLAGSHIP}
+    yms = {n: ops[n].matmat(xmd[n]) for n in FLAGSHIP}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"bf16 main path launches: {launches}")
+    for name in (*BF16_KERNELS, *BF16_SPMM_KERNELS):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 "bf16 path")
+    per_call = per_call_launches({n: (lambda n=n: ops[n](xd[n]))
+                                  for n in FLAGSHIP})
+    per_mm = per_call_launches({n: (lambda n=n: ops[n].matmat(xmd[n]))
+                                for n in FLAGSHIP})
+    log(f"launches per bf16 op(x): {json.dumps(per_call)}; per bf16 "
+        f"matmat (k {K_MM}): {json.dumps(per_mm)}")
+    for n in FLAGSHIP:
+        err = gate_bf16(f"bf16 {n}", ys[n], golden(csrs[n], xs[n]))
+        errs = [gate_bf16(f"bf16 matmat {n} column {r}", yms[n][:, r],
+                          golden(csrs[n], xms[n][:, r]))
+                for r in range(K_MM)]
+        log(f"gate bf16 {n}: ok, max |y - golden| / max(1, |golden|) "
+            f"{err:.3e}; matmat (k {K_MM}) {max(errs):.3e}")
+
+    # each bf16 kernel against its plain version, on its f32 y
+    wrap = {"band_bf16": kernels.band_spmv, "dense_bf16": kernels.dense_spmv,
+            "sparse_bf16": kernels.sparse_spmv,
+            "stream_bf16": kernels.stream_spmv,
+            "band_spmm_bf16": kernels.band_spmm,
+            "dense_spmm_bf16": kernels.dense_spmm,
+            "sparse_spmm_bf16": kernels.sparse_spmm,
+            "stream2_bf16": kernels.stream_spmm}
+    plain = {"band_bf16": reference.band_reference,
+             "dense_bf16": reference.dense_reference,
+             "sparse_bf16": reference.sparse_rows_reference,
+             "stream_bf16": reference.stream_rows_reference,
+             "band_spmm_bf16": reference.band_spmm_reference,
+             "dense_spmm_bf16": reference.dense_spmm_reference,
+             "sparse_spmm_bf16": reference.sparse_rows_reference,
+             "stream2_bf16": reference.stream_rows_reference}
+    results = compare_kernels(dev, card, BF16_KERNELS, wrap, plain, ops,
+                              csrs, launches, per_call)
+    results += compare_kernels(dev, card, BF16_SPMM_KERNELS, wrap, plain,
+                               ops, csrs, launches, per_mm, k=K_MM)
+    f32 = {r["name"]: r["ms"] for r in f32_results}
+    for r in results:
+        r["f32_ms"] = f32[r["name"].removesuffix("_bf16")]
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms vs the f32 kernel "
+            f"{r['f32_ms']:.4f} ms, bf16 / f32 {r['ms'] / r['f32_ms']:.3f}"
+            f"; bound {r['bound_ms']:.4f} ms, share "
+            f"{r['share_of_bound']:.3f}; library (f32 on the bf16 values) "
+            f"{r['library_ms']:.4f} ms, kernel / library "
+            f"{r['kernel_over_library']:.3f}; bf16 library "
+            + (f"{r['library_bf16_ms']:.4f} ms" if "library_bf16_ms" in r
+               else r["library_bf16_error"]) + f" [{card}]")
+
+    # end to end: bf16 (x held in bf16) between two timings of the f32
+    # operator, then the bf16 call's device time under trace_context
+    for n in FLAGSHIP:
+        op, x, xm = ops[n], xd[n], xmd[n]
+        x16 = x.to(torch.bfloat16)
+        plan = op.device_plan()
+        f32_before = cuda_ms(lambda: ops32[n](x))
+        ms = cuda_ms(lambda: op(x16))
+        f32_after = cuda_ms(lambda: ops32[n](x))
+        cols = [xm[:, r].contiguous() for r in range(K_MM)]
+        mm_ms = cuda_ms(lambda: op.matmat(xm))
+        spmv_ms = cuda_ms(lambda: [op(c) for c in cols])
+        plain_ms = cuda_ms(lambda: reference.spmv_reference(plan, x16),
+                           iters=3)
+        dev_us, top = traced_device_us(profiling, op, TRACE_CALLS)
+        dev_ms = dev_us / TRACE_CALLS / 1e3
+        flops = 2.0 * op.nnz
+        log(f"e2e bf16 {n}: kernels {ms:.4f} ms {flops / ms / 1e6:.2f} "
+            f"GFLOPS, f32 {f32_before:.4f} / {f32_after:.4f} ms (before /"
+            f" after), bf16 / f32 {2 * ms / (f32_before + f32_after):.3f}, "
+            f"plain {plain_ms:.4f} ms; device {dev_ms:.4f} ms per call, "
+            f"busy {dev_ms / ms:.2f}; " + ", ".join(
+                f"{k} {v / TRACE_CALLS / 1e3:.4f}" for k, v in top)
+            + f"; matmat (k {K_MM}) {mm_ms:.4f} ms vs {K_MM} x SpMV "
+            f"{spmv_ms:.4f} ms; plan {op.summary['plan_mbytes']} MB "
+            f"[{card}]")
+
+    out = run_cli(card, ["banded_large", "--dtype", "bf16", "--csv", "",
+                         "--iters", "20", "--reps", "3"], ("band_bf16",))
+    if "PASS!" not in out or "dtype=bf16" not in out:
+        raise AssertionError("cli banded_large --dtype bf16: no PASS!")
+    log(f"phase 11 (bf16): {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1094,6 +1315,7 @@ def main() -> int:
          **{(n, "f64"): f64_ms[n] for n in FLAGSHIP}})
 
     entry_points_phase(dev, card, ys["mixed_large"], repo)
+    results += bf16_phase(dev, card, csrs, ops, results)
 
     log(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

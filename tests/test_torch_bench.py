@@ -40,7 +40,7 @@ def test_detect_chip(name, chip, monkeypatch):
 
 def test_profiling_reads_the_sxm_figures():
     assert profiling.HBM_BYTES_PER_S == 3.35e12
-    assert profiling.PEAK_FLOPS == {4: 67e12, 8: 34e12}
+    assert profiling.PEAK_FLOPS == {2: 989e12, 4: 67e12, 8: 34e12}
     assert roofline.roofline_gflops(2, 4, "h100_sxm") == pytest.approx(
         2 / (4 / 3.35e12) / 1e9)
 
@@ -69,7 +69,8 @@ def test_csv_row_has_the_reference_schema(tmp_path):
     assert p.read_text().count("\n") == 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 def test_benchmark_op_on_the_cpu(dtype):
     csr = generate.mixed_structure(512, 512, seed=1)
     op = TileSpMV(csr, device="cpu", dtype=dtype)
@@ -99,3 +100,20 @@ def test_sweep_on_the_cpu(tmp_path, capsys):
     assert csvp.read_text() == res[0].csv_row() + "\n"
     assert '"eager_ms"' in jsonp.read_text()
     assert "mixed_small: m=256" in capsys.readouterr().out
+
+
+def test_bf16_sweep_and_bound_bytes(tmp_path, capsys):
+    """A bf16 sweep row, and the roofline table's 2-byte values: the
+    bf16 bound counts 2 bytes a value, x and y where f32 counts 4."""
+    res = sweep(["mixed_small"], device="cpu", csv_path=None,
+                compute_dtype=torch.bfloat16, iters_per_rep=2,
+                timed_reps=3, warmup=1, max_spread=math.inf)
+    assert len(res) == 1 and res[0].reliable and res[0].gflops > 0
+    assert "mixed_small: m=256" in capsys.readouterr().out
+    assert roofline.peak_compute_gflops("h100_sxm", 2) == 989e3
+    csr = generate.banded(2048, 2048, 8, seed=3)
+    bands = [TileSpMV(csr, device="cpu", dtype=dt).device_plan().band
+             for dt in (torch.float32, torch.bfloat16)]
+    b32, b16 = (profiling.class_bound([b]) for b in bands)
+    assert b32["flops"] == b16["flops"]
+    assert b32["bytes"] - b16["bytes"] >= 2 * int(bands[1].val.ne(0).sum())

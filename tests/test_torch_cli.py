@@ -1,8 +1,11 @@
 """The port's command-line tool (tilespmv_tpu_torch/cli.py) on the CPU
 (`-d cpu`): the .mtx check (errcount 0, PASS), plan and tile-matrix
 files, the plan cache, the manifest sweep and --resume
-(tests/test_aux.py's), the options the port does not serve yet (exit
-2), and no silent CPU fallback without a card."""
+(tests/test_aux.py's), --dtype bf16 on every fixture and a corpus name
+(PASS, as the reference's CLI prints) and its plan files, the options
+the port does not serve yet (exit 2), and no silent CPU fallback
+without a card."""
+import glob
 import os
 import shutil
 import subprocess
@@ -117,9 +120,33 @@ def test_sweep_resume_skips_recorded_rows(tmp_path, capsys):
     assert "2/2 ok" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize(
+    "matrix", sorted(glob.glob("tests/fixtures/*.mtx")) + ["mixed_small"])
+def test_bf16_on_the_cpu(matrix, capsys):
+    assert cli.main(["-d", "cpu", matrix, "--dtype", "bf16", "--csv", ""]
+                    + QUICK) == 0
+    out = capsys.readouterr().out
+    assert "errcount = 0" in out and "Check... PASS!" in out
+    assert "dtype=bf16" in out and "TileSpMV: " in out
+
+
+def test_bf16_plan_file(tmp_path, capsys):
+    plan = str(tmp_path / "p16.npz")
+    assert cli.main(["-d", "cpu", "mixed_small", "--dtype", "bf16",
+                     "--save-plan", plan, "--profile", "--csv", ""]
+                    + QUICK) == 0
+    out = capsys.readouterr().out
+    assert '"dtype": "bfloat16"' in out and "PASS!" in out
+    assert cli.main(["-d", "cpu", "--load-plan", plan, "mixed_small",
+                     "--dtype", "bf16", "--csv", ""] + QUICK) == 0
+    assert "Check... PASS!" in capsys.readouterr().out
+    # a bf16 plan file is not an f32 operator
+    with pytest.raises(ValueError, match="plan holds"):
+        cli.main(["-d", "cpu", "--load-plan", plan, "--csv", ""] + QUICK)
+
+
 @pytest.mark.parametrize("args,item", [
     (["--scaling"], "A.12"),
-    (["--dtype", "bf16", FIX], "A.14"),
     (["--tile-size", "8", FIX], "A.13")])
 def test_unported_options_exit_2(args, item, capsys):
     assert cli.main(["-d", "cpu"] + args) == 2

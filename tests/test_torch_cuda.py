@@ -6,7 +6,10 @@ C = 1, 3 and 7, the W-class SpMV and SpMM kernels at W = 16, 24 and 96
 on edge-case tiles, each with a non-finite x, and the probe scripts' A/B
 arms), the operator against the float64 golden, `profile_engines` and
 `trace_context` on a CUDA operator, `from_plan` on a loaded plan file,
-`.T` on a rectangular matrix, and the bench harness's CUDA-graph time.
+`.T` on a rectangular matrix, the bench harness's CUDA-graph time, and
+the eight bf16-value kernels (`*_bf16`, f32 sums on f32 x and y) on
+every class, at k = 2, 5 and 16, with Inf / NaN in x and on empty
+classes, the bf16 operator against the golden within 2^-8.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
@@ -768,3 +771,263 @@ def test_benchmark_op_graph_time_within_eager_time(device):
     # 20), none per replay of the graph
     assert kernels.launch_counts()["dense"] - before == \
         per_call * (1 + 20 * (1 + 2 + 5))
+
+
+# bf16: the eight *_bf16 kernels read bf16 values and compute in f32 on
+# f32 x and y; each is held to its plain version on that f32 y
+BF16 = torch.bfloat16
+
+
+def _bf16_x(n, k=None, seed=0):
+    """A seeded uniform(-1, 1) x (n,) or (n, k), rounded to bf16 (the
+    operator's cast) and widened back to float32 (the kernels' x)."""
+    shape = (n,) if k is None else (n, k)
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1, 1, shape)).to(BF16).float()
+
+
+def _bf16_run(wrap, key, cls, xp, y) -> torch.Tensor:
+    """One launch of a bf16 kernel through its wrapper into y: its
+    `<key>_bf16` count moves by one and the f32 kernel's not at all."""
+    before = kernels.launch_counts()
+    assert wrap(cls, xp, y) is y
+    after = kernels.launch_counts()
+    assert after[key + "_bf16"] == before[key + "_bf16"] + 1
+    assert after[key] == before[key]
+    return y
+
+
+def _bf16_gate(y: torch.Tensor, gold: np.ndarray) -> None:
+    """|y - golden| <= 2^-8 |golden| + 1e-6: with the generator's values
+    (quarters) and a dyadic x every f32 sum is exact, and only y's one
+    rounding to bf16 remains."""
+    assert y.dtype == BF16
+    err = np.abs(y.float().cpu().numpy() - gold)
+    assert bool(np.all(err <= 2.0 ** -8 * np.abs(gold) + 1e-6)), err.max()
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_bf16_kernels_match_plain_versions(name, device):
+    """Every class of the bf16 plan through its bf16 SpMV kernel and, at
+    k = 2, 5 and 16, its bf16 SpMM kernel (one launch per class over all
+    k columns) against the plain version on the f32 y, within 1e-5 of
+    max(1, max|plain|); then the operator against the float64 golden
+    with bench.py's x and matmat at k = 8 (_bf16_gate)."""
+    csr = MATRICES[name]()
+    op = TileSpMV(csr, device=device, dtype=BF16)
+    plan = op.device_plan()
+    assert plan.dtype == BF16
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    ran = 0
+    for k in (None, 2, 5, 16):
+        xp = reference.pad_x(plan, _bf16_x(csr.n, k, seed=k or 0).to(
+            device))
+        assert xp.dtype == torch.float32
+        rhs = () if k is None else (k,)
+        for kind, cls_list in _classes(plan).items():
+            key, wrap, plain = ((kind, *PAIRS[kind]) if k is None
+                                else MM_PAIRS[kind])
+            for cls in cls_list:
+                if cls is None:
+                    continue
+                assert cls.val.dtype == BF16
+                yk = _bf16_run(wrap, key, cls, xp,
+                               torch.zeros((ylen,) + rhs, device=device))
+                yp = plain(cls, xp, torch.zeros((ylen,) + rhs,
+                                                device=device))
+                torch.cuda.synchronize()
+                err = float((yk - yp).abs().max())
+                assert err <= 1e-5 * max(1.0, float(yp.abs().max())), (
+                    kind, k, err)
+                ran += 1
+    assert ran
+    xb = _bench_x(csr.n)
+    _bf16_gate(op(xb), csr.matvec(xb.astype(np.float64)))
+    xb = _bench_x(csr.n, 8)
+    got = op.matmat(xb)
+    for r in range(8):
+        _bf16_gate(got[:, r], csr.matvec(xb[:, r].astype(np.float64)))
+
+
+def test_bf16_dense_kernel_edges(device):
+    """dense.cu and dense_spmm.cu (k = 2, 5, 16) in bf16 on
+    dense_edges_csr's class (a one-lane chunk, a full chunk, zero
+    columns): both plain versions within 1e-5 of max(1, max|plain|);
+    with an Inf in x at a zero column of a tile, NaN for NaN and Inf for
+    Inf."""
+    csr = dense_edges_csr()
+    plan = TileSpMV(csr, device=device, dtype=BF16).device_plan()
+    d = plan.dense
+    nact = (d.meta[:, 0] >= 0).sum(dim=1).tolist()
+    assert 1 in nact and d.t_lanes in nact and d.val.dtype == BF16
+    for k in (None, 2, 5, 16):
+        x = _bf16_x(csr.n, k, seed=4)
+        xb = x.clone()
+        xb[100 * 16 + 1] = np.inf
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, xh.to(device))
+            rhs = (reference.zero_y(plan, xp).shape[0],) + (
+                () if k is None else (k,))
+            key, wrap = ("dense", kernels.dense_spmv) if k is None else (
+                "dense_spmm", kernels.dense_spmm)
+            yk = _bf16_run(wrap, key, d, xp, torch.zeros(rhs,
+                                                         device=device))
+            for plain in (reference.dense_reference,
+                          reference.dense_active_reference):
+                yp = plain(d, xp, torch.zeros(rhs, device=device))
+                torch.cuda.synchronize()
+                assert bool(yp.isnan().any()) == (xh is xb)
+                _agree(yk, yp, 1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(BAND_SPMM_EDGES))
+def test_bf16_band_kernel_edges(name, device):
+    """band.cu and band_spmm.cu (k = 2, 5, 16) in bf16 at C = 1, 3 and 7:
+    band_reference within 1e-5 of max(1, max|plain|); with an Inf and a
+    NaN in x (in column 1 of X), NaN for NaN and Inf for Inf."""
+    csr = BAND_SPMM_EDGES[name]()
+    plan = TileSpMV(csr, device=device, dtype=BF16).device_plan()
+    if name in BAND_EDGES:
+        check_band_edges(name, plan)
+    assert plan.band.val.dtype == BF16
+    for k in (None, 2, 5, 16):
+        x = _bf16_x(csr.n, k, seed=6)
+        xb = x.clone()
+        if k is None:
+            xb[INF_COL], xb[NAN_COL] = np.inf, np.nan
+        else:
+            xb[INF_COL, 1], xb[NAN_COL, 1] = np.inf, np.nan
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, xh.to(device))
+            rhs = (reference.zero_y(plan, xp).shape[0],) + (
+                () if k is None else (k,))
+            key, wrap = ("band", kernels.band_spmv) if k is None else (
+                "band_spmm", kernels.band_spmm)
+            yk = _bf16_run(wrap, key, plan.band, xp,
+                           torch.zeros(rhs, device=device))
+            yp = reference.band_reference(plan.band, xp,
+                                          torch.zeros(rhs, device=device))
+            torch.cuda.synchronize()
+            assert bool(yp.isfinite().all()) == (xh is x)
+            _agree(yk, yp, 1e-5)
+
+
+@pytest.mark.parametrize("width", SPARSE_EDGE_WIDTHS)
+def test_bf16_sparse_kernel_edges(width, device):
+    """sparse.cu and sparse_spmm.cu (k = 2, 5, 16) in bf16 on
+    sparse_edges_csr's class (an inert 32-lane group, tiles of W - 1
+    entries, empty rows 0, 7 and 15): sparse_rows_reference within 1e-5
+    of max(1, max|plain|); with an Inf in x (column 1 of X) at a tile's
+    first entry and a NaN at another's, NaN for NaN and Inf for Inf."""
+    csr = sparse_edges_csr(width)
+    plan = TileSpMV(csr, device=device, dtype=BF16).device_plan()
+    s = check_sparse_edges(width, plan)
+    assert s.val.dtype == BF16
+    cols = reference.class_coo(s)[1]
+    for k in (None, 2, 5, 16):
+        x = _bf16_x(csr.n, k, seed=7)
+        xb = x.clone()
+        c = () if k is None else (1,)
+        xb[(cols[0],) + c], xb[(cols[-1],) + c] = np.inf, np.nan
+        for xh in (x, xb):
+            xp = reference.pad_x(plan, xh.to(device))
+            rhs = (reference.zero_y(plan, xp).shape[0],) + (
+                () if k is None else (k,))
+            key, wrap = ("sparse", kernels.sparse_spmv) if k is None else (
+                "sparse_spmm", kernels.sparse_spmm)
+            yk = _bf16_run(wrap, key, s, xp, torch.zeros(rhs,
+                                                         device=device))
+            yp = reference.sparse_rows_reference(
+                s, xp, torch.zeros(rhs, device=device))
+            torch.cuda.synchronize()
+            assert bool(yp.isnan().any()) == (xh is xb)
+            _agree(yk, yp, 1e-5)
+
+
+@pytest.mark.parametrize("case", sorted(STREAM_CLASSES))
+def test_bf16_stream_kernels_match_rows_reference(case, device):
+    """stream.cu (every slabs-per-block group) and stream2.cu (k = 2, 5,
+    16) in bf16 on classes straight from the builders (mono, dual, free
+    placement, a split pair) against stream_rows_reference, within 1e-5
+    of max(1, max|plain|); with an Inf in x (column 1 of X) at an
+    entry's column, NaN for NaN and Inf for Inf."""
+    make, kw = STREAM_CLASSES[case]
+    row, col, val, m, n = make()
+    if kw is None:
+        classes = tuple(map(sp.bf16_values, sp.build_stream_classes(
+            row, col, val, m, span_rows=64, dual=True)))
+        assert classes[1] is not None
+    else:
+        classes = (sp.bf16_values(
+            sp.build_stream_chunks(row, col, val, m, **kw)),)
+    rows = -(-n // 128) + sp.MAX_SPAN_ROWS
+    xlen = -(-rows // sp.SPAN_ROWS) * sp.SPAN_ROWS * 128
+    ylen = max(1, -(-m // 1024)) * 1024
+    for st in classes:
+        st = dataclasses.replace(st, **{
+            f.name: reference.plan_tensor(getattr(st, f.name)).to(device)
+            for f in dataclasses.fields(st)
+            if f.type == "Any" and getattr(st, f.name) is not None})
+        assert st.val.dtype == BF16
+        for k in (None, 2, 5, 16):
+            rhs = () if k is None else (k,)
+            x = torch.zeros((xlen,) + rhs)
+            x[:n] = _bf16_x(n, k, seed=2)
+            xb = x.clone()
+            xb[col[0]] = np.inf
+            for xh in (x, xb):
+                xp = xh.to(device)
+                yp = reference.stream_rows_reference(
+                    st, xp, torch.zeros((ylen,) + rhs, device=device))
+                if k is None:
+                    for group in (1, 2, 4, st.s_batch):
+                        yk = torch.zeros(ylen, device=device)
+                        kernels.stream_spmv(st, xp, yk, group=group)
+                        torch.cuda.synchronize()
+                        _agree(yk, yp, 1e-5)
+                    _bf16_run(kernels.stream_spmv, "stream", st, xp,
+                              torch.zeros(ylen, device=device))
+                else:
+                    yk = _bf16_run(kernels.stream_spmm, "stream2", st, xp,
+                                   torch.zeros((ylen, k), device=device))
+                    torch.cuda.synchronize()
+                    _agree(yk, yp, 1e-5)
+            assert float(yp.abs().max()) > 0
+
+
+def _empty(cls):
+    """`cls` (tensors) cut to no chunk, slab or step: a launch with
+    nothing to do."""
+    if isinstance(cls, sp.StreamChunks):
+        kw = {f: getattr(cls, f)[:0] for f in (
+            "val", "vidx", "erow", "planes", "sbase", "cw", "cfirst",
+            "sactive") + (("sbase2",) if cls.sbase2 is not None else ())}
+        if cls.xmap is not None:
+            kw["xmap"] = cls.xmap[:0]
+        return dataclasses.replace(cls, **kw)
+    kw = {f.name: getattr(cls, f.name)[:0] for f in dataclasses.fields(cls)
+          if isinstance(getattr(cls, f.name), torch.Tensor)}
+    return dataclasses.replace(cls, **kw)
+
+
+def test_bf16_kernels_on_empty_classes(device):
+    """Each of the eight bf16 kernels launched on a class with no chunk,
+    slab or step (grid 0: no kernel runs, the launch is still checked and
+    counted) leaves y zero."""
+    plan = TileSpMV(generate.get_matrix("mixed_medium"), device=device,
+                    dtype=BF16).device_plan()
+    band = TileSpMV(generate.get_matrix("banded_medium"), device=device,
+                    dtype=BF16).device_plan().band
+    xp = reference.pad_x(plan, _bf16_x(plan.n).to(device))
+    xk = reference.pad_x(plan, _bf16_x(plan.n, 5).to(device))
+    ylen = reference.zero_y(plan, xp).shape[0]
+    for kind, cls in (("band", band), ("dense", plan.dense),
+                      ("sparse", plan.sparses[0]), ("stream", plan.stream)):
+        cls = _empty(cls)
+        y = _bf16_run(PAIRS[kind][0], kind, cls, xp,
+                      torch.zeros(ylen, device=device))
+        key, wrap, _ = MM_PAIRS[kind]
+        y5 = _bf16_run(wrap, key, cls, xk, torch.zeros(ylen, 5,
+                                                       device=device))
+        torch.cuda.synchronize()
+        assert not bool(y.any()) and not bool(y5.any())

@@ -8,6 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 from tilespmv_tpu.core import convert as j_convert
@@ -72,7 +73,7 @@ def test_f64_lane_plan_matches_reference(name, native_mode):
         t_convert.tile_create(make(t_gen, TCSR, name)),
         compute_dtype=np.float64)
     assert not tplan.sparses
-    assert tplan.dtype == np.float64
+    assert tplan.dtype == torch.float64
     for cls in (tplan.dense, tplan.band, tplan.stream, tplan.stream2):
         if cls is not None:
             assert cls.val.dtype == np.float64
@@ -153,4 +154,4 @@ def test_f64_plan_bytes_and_summary():
         band_bytes // 2 + (p64.x_padded_len + p64.m) * 4)
     with pytest.raises(ValueError):
         t_lane.build_lane_plan(tm, compute_dtype=np.float16)
-    assert dataclasses.replace(p64).dtype == np.float64
+    assert dataclasses.replace(p64).dtype == torch.float64

@@ -5,7 +5,13 @@ bit-equal and loads in either package; a LanePlan file the port writes
 reference writes (f32, or df64) loads equal to interop.lane_plan_from_jax
 of the reference's plan; an f32 file the port writes loads in the
 reference as the reference's own plan; and `TileSpMV.from_plan` on a
-loaded plan gives the original operator's y."""
+loaded plan gives the original operator's y. bf16 plans: the port's
+file round-trips bit-exact (value arrays written as the reference
+writes its own, 2-byte void items), the port loads the reference's bf16
+files (whose value arrays the reference's own loader gives back as
+`|V2`, not bfloat16: a fault of the reference, pinned here) as bf16
+bits, and the reference loads the port's bf16 files as it loads its
+own."""
 import json
 
 import numpy as np
@@ -146,12 +152,56 @@ def test_reference_df64_plan_file_loads_as_carried(name, tmp_path):
     pj = str(tmp_path / "j64.npz")
     j_ser.save_lane_plan(pj, jplan)
     loaded = t_ser.load_lane_plan(pj)
-    assert loaded.dtype == np.float64
+    assert loaded.dtype == torch.float64
     assert_same(loaded, lane_plan_from_jax(jplan))
     assert_same(loaded, tplan)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_port_bf16_plan_file_round_trips(name, tmp_path):
+    tplan = t_lane.build_lane_plan(_tm("t", name), compute_dtype="bfloat16")
+    p, pd = str(tmp_path / "plan.npz"), str(tmp_path / "dev.npz")
+    t_ser.save_lane_plan(p, tplan)
+    back = t_ser.load_lane_plan(p)
+    assert back.dtype == torch.bfloat16
+    assert_same(back, tplan)
+    check_dense_derived(back.dense)
+    t_ser.save_lane_plan(pd, to_torch(tplan))
+    with np.load(p) as a, np.load(pd) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        vals = [k for k in a.files if k.endswith(".val")]
+        assert vals and all(a[k].dtype == np.dtype("V2") for k in vals)
+
+
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_reference_bf16_plan_file_loads_as_carried(name, tmp_path):
+    import jax.numpy as jnp
+    tplan = t_lane.build_lane_plan(_tm("t", name), compute_dtype="bfloat16")
+    jplan = j_lane.build_lane_plan(_tm("j", name), compute_dtype=jnp.bfloat16)
+    pj, pt = str(tmp_path / "j16.npz"), str(tmp_path / "t16.npz")
+    j_ser.save_lane_plan(pj, jplan)
+    loaded = t_ser.load_lane_plan(pj)
+    assert loaded.dtype == torch.bfloat16
+    assert_same(loaded, lane_plan_from_jax(jplan))
+    assert_same(loaded, tplan)
+    # the reference's loader gives its own bf16 values back as 2-byte
+    # void items (the bytes kept, the dtype lost), and the port's file
+    # the same way
+    t_ser.save_lane_plan(pt, tplan)
+    own = j_ser.load_lane_plan(pj, device=False)
+    assert own.residual.val.dtype == np.dtype("V2")
+    theirs = j_ser.load_lane_plan(pt, device=False)
+    assert_same(theirs, own)
+    np.testing.assert_array_equal(
+        np.asarray(own.residual.val).view(np.uint16),
+        np.asarray(jplan.residual.val).view(np.uint16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
 @pytest.mark.parametrize("name", F64_CASES)
 def test_from_plan_on_loaded_plan_gives_the_same_y(name, dtype, tmp_path):
     tm = _tm("t", name)

@@ -24,13 +24,14 @@ HBM_GBPS = {
     "cpu": 50.0,  # rough, for running the harness on the host's CPU
 }
 
-# peak FLOP/s per card by value size in bytes (4: FP32, 8: FP64), in
-# GFLOPS: a physical bound on a benchmark result, not a target
+# peak FLOP/s per card by value size in bytes (2: BF16 on the tensor
+# cores, 4: FP32 and 8: FP64 outside them), in GFLOPS: a physical bound
+# on a benchmark result, not a target
 PEAK_GFLOPS = {
-    "h100_sxm": {4: 67e3, 8: 34e3},
-    "h100_pcie": {4: 51e3, 8: 26e3},
-    "h100_nvl": {4: 60e3, 8: 30e3},
-    "cpu": {4: 2e3, 8: 1e3},
+    "h100_sxm": {2: 989e3, 4: 67e3, 8: 34e3},
+    "h100_pcie": {2: 756e3, 4: 51e3, 8: 26e3},
+    "h100_nvl": {2: 835e3, 4: 60e3, 8: 30e3},
+    "cpu": {2: 2e3, 4: 2e3, 8: 1e3},
 }
 
 # a CUDA card of none of these parts: no published figure to hold it to

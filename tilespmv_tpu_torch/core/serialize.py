@@ -16,6 +16,9 @@ its value is an int, bool or str, and an array otherwise (None: absent).
 conversion that carries a reference plan across: a reference file (no
 `erow`, `cmask`, `groups`; df64 values as f32 parts) and a file of this
 package come out as this package's LanePlan of NumPy arrays alike.
+bf16 value arrays are written as the reference writes its own, as 2-byte
+void items (NumPy has no bfloat16), and both packages load them back as
+such; the conversion makes them this package's bf16 bits.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import torch
 
 from ..config import TileConfig
 from ..interop import lane_plan_from_jax
+from ..ops.cuda.lane_plan import value_dtype
+from ..ops.cuda.reference import plan_array
 from .tile_matrix import (COOBucket, CSRBucket, DNSBucket, DNSColBucket,
                           DNSRowBucket, ELLBucket, HYBBucket, TileMatrix)
 
@@ -89,6 +94,13 @@ _PLAN_CLASSES = ("LanePlan", "DenseChunks", "BandChunks", "SparseChunks",
 _REFERENCE_DEFAULTS = dict(df64=False, route="onehot", scatter="rounds")
 
 
+def _file_array(v) -> np.ndarray:
+    """A plan array (NumPy or a tensor) as the file holds it: bf16 values
+    (lane_plan.value_dtype) as 2-byte void items."""
+    v = plan_array(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+    return v.view("V2") if value_dtype(v) == torch.bfloat16 else v
+
+
 def _flatten_node(node, key: str, arrays: dict):
     if isinstance(node, tuple):
         return [_flatten_node(c, f"{key}.{i}", arrays)
@@ -108,9 +120,7 @@ def _flatten_node(node, key: str, arrays: dict):
         elif isinstance(v, tuple) or dataclasses.is_dataclass(v):
             meta[f.name] = _flatten_node(v, f"{key}.{f.name}", arrays)
         else:
-            arrays[f"{key}.{f.name}"] = (v.detach().cpu().numpy()
-                                         if isinstance(v, torch.Tensor)
-                                         else np.asarray(v))
+            arrays[f"{key}.{f.name}"] = _file_array(v)
             meta["arrays"].append(f.name)
     return meta
 
@@ -142,8 +152,8 @@ def _unflatten_node(meta, key: str, z):
 
 
 def save_lane_plan(path: str, plan) -> None:
-    """Serialize a LanePlan (f32 or f64; arrays NumPy or tensors on any
-    device, e.g. `TileSpMV.device_plan()`) to one .npz."""
+    """Serialize a LanePlan (f32, f64 or bf16; arrays NumPy or tensors on
+    any device, e.g. `TileSpMV.device_plan()`) to one .npz."""
     arrays: dict = {}
     tree = _flatten_node(plan, "plan", arrays)
     meta = dict(version=_PLAN_VERSION, tree=tree)

@@ -11,9 +11,12 @@ val + val_lo) in the f32 layout, and the segmented-scan planes
 rows (`erow`), derived from their planes, and the dense class its
 column masks and active lane groups (`cmask`, `groups`), derived from
 its values and meta; a source that already holds them (a plan file this
-package wrote, core/serialize.py) keeps its own. Any object with the
-reference's field names converts, so core/serialize.py loads plan files
-of either package through this one conversion. This module imports
+package wrote, core/serialize.py) keeps its own. bf16 value arrays
+(JAX's bfloat16, or the 2-byte void dtype the reference's plan files
+load back as) become this package's bf16 bits (stream_plan.BF16_BITS).
+Any object with the reference's field names converts, so
+core/serialize.py loads plan files of either package through this one
+conversion. This module imports
 nothing of JAX: the caller passes the object in.
 """
 from __future__ import annotations
@@ -22,16 +25,26 @@ import dataclasses
 
 import numpy as np
 
+import torch
+
 from .ops.cuda.lane_plan import (BandChunks, DenseChunks, LanePlan,
-                                 SparseChunks, with_dense_derived)
-from .ops.cuda.stream_plan import StreamChunks, with_entry_rows
+                                 SparseChunks, value_dtype,
+                                 with_dense_derived)
+from .ops.cuda.stream_plan import BF16_BITS, StreamChunks, with_entry_rows
 from .ops.plan import ResidualEngine
+
+
+def _array(v) -> np.ndarray:
+    """np.asarray(v), bf16 values (lane_plan.value_dtype) as their
+    bits."""
+    a = np.asarray(v)
+    return a.view(BF16_BITS) if value_dtype(a) == torch.bfloat16 else a
 
 
 def _convert(cls, obj, **override):
     """Instance of the dataclass `cls` from the same-named fields of
     `obj` (None where `obj` has no such field); array fields go through
-    np.asarray, static ones as they are; `override` replaces fields."""
+    _array, static ones as they are; `override` replaces fields."""
     if obj is None:
         return None
     kw = {}
@@ -40,7 +53,7 @@ def _convert(cls, obj, **override):
             continue
         v = getattr(obj, f.name, None)
         kw[f.name] = v if v is None or isinstance(
-            v, (bool, int, str)) else np.asarray(v)
+            v, (bool, int, str)) else _array(v)
     kw.update(override)
     return cls(**kw)
 
@@ -94,8 +107,8 @@ def _band(bd):
 
 
 def lane_plan_from_jax(plan) -> LanePlan:
-    """This package's LanePlan holding `plan`'s arrays (an f32 plan, or
-    a df64 one as this package's f64 plan)."""
+    """This package's LanePlan holding `plan`'s arrays (an f32 or bf16
+    plan, or a df64 one as this package's f64 plan)."""
     if plan.dense is not None and plan.dense.route != "onehot":
         raise NotImplementedError("the prefix dense route is not ported")
     if any(s.route != "onehot" for s in plan.sparses):

@@ -1,4 +1,4 @@
-// Band (brick) class SpMV for sm_90a, f32 and f64.
+// Band (brick) class SpMV for sm_90a, f32, f64 and bf16 values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_band_kernel (called by
 // band_class_call; f32 arm, and the df64 arms :545-621 as native FP64):
@@ -7,7 +7,7 @@
 // tilecol(loc) = pb[w*K + (loc >> 8)]*256 + (loc & 255).
 //
 // Bound: device-memory bytes. The (nchunks, C, 16, 16, 256) brick
-// payload is read once at one FMA per value (4 or 8 bytes), far below the
+// payload is read once at one FMA per value (4, 8 or 2 bytes), far below the
 // FP32 and FP64 rates; x (a few MB) stays in L2. A lane's x block lies
 // 16 values from its neighbour's, so reading it per lane costs a 32-byte
 // sector for every lane of a warp, several times the value loads' L1
@@ -26,9 +26,14 @@
 // * every product is taken, zeros included (the brick is ~69% full), so
 //   a non-finite x meets a zero value as 0*x, as in band_reference.
 // The TPU emulated f64 with f32 pairs; the f64 instance reads the plan's
-// f64 values and accumulates in native FP64. scripts/band_probes.py
-// times kRows in {1, 2, 4} and copies with x read per lane or not at all.
+// f64 values and accumulates in native FP64. The bf16 instance reads bf16
+// values (half the brick's bytes) into the f32 kernel's registers, x, y
+// and the staging being f32 as in the reference (values.cuh).
+// scripts/band_probes.py times kRows in {1, 2, 4} and copies with x read
+// per lane or not at all.
 #include <cuda_runtime.h>
+
+#include "values.cuh"
 
 namespace {
 
@@ -36,7 +41,8 @@ constexpr int kWindow = 256;  // ROW_WINDOW: lanes (tile-rows) per window
 constexpr int kB = 16;        // tile edge
 constexpr int kPad = kB + 1;  // staged row stride: no bank conflicts
 constexpr int kLanes = 32;    // lanes of a block: a warp's
-// tile rows of a thread by value type: 1 in f64, 2 in f32
+// tile rows of a thread by compute type: 1 in f64, 2 in f32 (f32 and bf16
+// values)
 template <typename V>
 constexpr int kRows = sizeof(V) == 8 ? 1 : 2;
 template <typename V>
@@ -50,9 +56,10 @@ __device__ __forceinline__ double fmadd(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename V>
+// Val: the plan's value type; V: the compute type of x, y and the sums
+template <typename Val, typename V = tsp::acc_t<Val>>
 __global__ void __launch_bounds__(kLanes * kWarps<V>)
-band_kernel(const V* __restrict__ val, const int* __restrict__ bloc,
+band_kernel(const Val* __restrict__ val, const int* __restrict__ bloc,
             const int* __restrict__ pb, const int* __restrict__ cw,
             const V* __restrict__ x, V* __restrict__ y, int c_cols,
             int k_panels) {
@@ -64,7 +71,7 @@ band_kernel(const V* __restrict__ val, const int* __restrict__ bloc,
   const int l = threadIdx.x % kLanes;
   const int i0 = threadIdx.x / kLanes * kRows<V>;
   // val[w][cb][j][i][t]: (cb, j, r) at v[((cb*16 + j)*16 + r) * 256]
-  const V* v =
+  const Val* v =
       val + ((long long)w * c_cols * kB * kB + i0) * kWindow + t0 + l;
   // the first column block's values: they do not wait for x
   constexpr int R = kRows<V>;
@@ -72,7 +79,9 @@ band_kernel(const V* __restrict__ val, const int* __restrict__ bloc,
 #pragma unroll
   for (int j = 0; j < kB; ++j) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) a[r][j] = v[(j * kB + r) * kWindow];
+    for (int r = 0; r < R; ++r) {
+      a[r][j] = tsp::to_acc(v[(j * kB + r) * kWindow]);
+    }
   }
   // the 32 lanes' x blocks, entry (cb, lane, column) by thread
   const int* bw = bloc + (long long)w * kWindow + t0;
@@ -93,7 +102,7 @@ band_kernel(const V* __restrict__ val, const int* __restrict__ bloc,
       for (int j = 0; j < kB; ++j) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          a[r][j] = v[((cb * kB + j) * kB + r) * kWindow];
+          a[r][j] = tsp::to_acc(v[((cb * kB + j) * kB + r) * kWindow]);
         }
       }
     }
@@ -116,8 +125,8 @@ band_kernel(const V* __restrict__ val, const int* __restrict__ bloc,
   }
 }
 
-template <typename V>
-int launch(const V* val, const int* bloc, const int* pb, const int* cw,
+template <typename Val, typename V>
+int launch(const Val* val, const int* bloc, const int* pb, const int* cw,
            const V* x, V* y, int nchunks, int c_cols, int k_panels,
            void* stream) {
   if (c_cols < 1 || c_cols > kMaxC) {
@@ -125,7 +134,7 @@ int launch(const V* val, const int* bloc, const int* pb, const int* cw,
   }
   if (nchunks > 0) {
     const size_t smem = sizeof(V) * c_cols * kLanes * kPad;
-    band_kernel<V><<<nchunks * (kWindow / kLanes), kLanes * kWarps<V>, smem,
+    band_kernel<Val><<<nchunks * (kWindow / kLanes), kLanes * kWarps<V>, smem,
                      static_cast<cudaStream_t>(stream)>>>(
         val, bloc, pb, cw, x, y, c_cols, k_panels);
   }
@@ -145,5 +154,12 @@ extern "C" int tsp_band_f64(const double* val, const int* bloc,
                             const int* pb, const int* cw, const double* x,
                             double* y, int nchunks, int c_cols,
                             int k_panels, void* stream) {
+  return launch(val, bloc, pb, cw, x, y, nchunks, c_cols, k_panels, stream);
+}
+
+extern "C" int tsp_band_bf16(const __nv_bfloat16* val, const int* bloc,
+                             const int* pb, const int* cw, const float* x,
+                             float* y, int nchunks, int c_cols, int k_panels,
+                             void* stream) {
   return launch(val, bloc, pb, cw, x, y, nchunks, c_cols, k_panels, stream);
 }

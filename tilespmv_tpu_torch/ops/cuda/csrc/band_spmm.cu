@@ -1,4 +1,5 @@
-// Band (brick) class SpMM over k right-hand sides for sm_90a.
+// Band (brick) class SpMM over k right-hand sides for sm_90a, f32 and bf16
+// values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_band_spmm_kernel (called by
 // band_spmm_call): for each RHS r < K,
@@ -35,11 +36,14 @@
 //   no atomic (other classes add in other, stream-ordered launches);
 // * every product is taken, zeros included (the brick is ~69% full), so a
 //   non-finite X meets a zero value as 0*X, as in band_reference.
+// The bf16 instance reads bf16 values (half the brick's bytes) into the
+// same registers as floats; X, Y and the staging are f32 (values.cuh).
 // scripts/spmm_probes.py times kRows 1, 2, 4, every column block staged at
 // once (kStages 8) and each thread adding its rows into Y (kYShared 0).
 #include <cuda_runtime.h>
 
 #include "spmm_k.cuh"
+#include "values.cuh"
 
 namespace {
 
@@ -97,9 +101,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <int K>
+// Val: the plan's value type (float or bf16); X, Y and the sums are f32
+template <int K, typename Val>
 __global__ void __launch_bounds__(kThreads<K>)
-band_spmm_kernel(const float* __restrict__ val, const int* __restrict__ bloc,
+band_spmm_kernel(const Val* __restrict__ val, const int* __restrict__ bloc,
                  const int* __restrict__ pb, const int* __restrict__ cw,
                  const float* __restrict__ x, float* __restrict__ y,
                  int c_cols, int k_panels, int nslots) {
@@ -116,7 +121,7 @@ band_spmm_kernel(const float* __restrict__ val, const int* __restrict__ bloc,
   const int l = threadIdx.x % kLanes;
   const int i0 = threadIdx.x / kLanes * R;
   // val[w][cb][j][i][t]: (cb, j, r) at v[((cb*16 + j)*16 + r) * 256]
-  const float* v =
+  const Val* v =
       val + ((long long)w * c_cols * kB * kB + i0) * kWindow + t0 + l;
   const int* bw = bloc + (long long)w * kWindow + t0;
   const int* pbw = pb + (long long)w * k_panels;
@@ -158,7 +163,7 @@ band_spmm_kernel(const float* __restrict__ val, const int* __restrict__ bloc,
     for (int j = 0; j < kB; ++j) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        a[r][j] = v[((cb * kB + j) * kB + r) * kWindow];
+        a[r][j] = tsp::to_acc(v[((cb * kB + j) * kB + r) * kWindow]);
       }
     }
     // the slot it takes was last read before the barrier ending cb - 1
@@ -208,12 +213,10 @@ band_spmm_kernel(const float* __restrict__ val, const int* __restrict__ bloc,
   }
 }
 
-}  // namespace
-
-extern "C" int tsp_band_spmm(const float* val, const int* bloc,
-                             const int* pb, const int* cw, const float* x,
-                             float* y, int nchunks, int c_cols, int k_panels,
-                             int k_rhs, void* stream) {
+template <typename Val>
+int launch(const Val* val, const int* bloc, const int* pb, const int* cw,
+           const float* x, float* y, int nchunks, int c_cols, int k_panels,
+           int k_rhs, void* stream) {
   if (c_cols < 1 || c_cols > kMaxC) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -221,8 +224,8 @@ extern "C" int tsp_band_spmm(const float* val, const int* bloc,
   const bool ok = tsp::with_k(k_rhs, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        band_spmm_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_cap<K>());
+        band_spmm_kernel<K, Val>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_cap<K>());
     const int nslots = c_cols < kStages ? c_cols : kStages;
     const int smem = nslots * slot_bytes<K>();
     if (attr != cudaSuccess) {
@@ -230,11 +233,31 @@ extern "C" int tsp_band_spmm(const float* val, const int* bloc,
     } else if (smem > smem_cap<K>()) {
       err = static_cast<int>(cudaErrorInvalidValue);
     } else if (nchunks > 0) {
-      band_spmm_kernel<K><<<nchunks * (kWindow / kLanes), kThreads<K>, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+      band_spmm_kernel<K, Val>
+          <<<nchunks * (kWindow / kLanes), kThreads<K>, smem,
+             static_cast<cudaStream_t>(stream)>>>(
           val, bloc, pb, cw, x, y, c_cols, k_panels, nslots);
       err = static_cast<int>(cudaGetLastError());
     }
   });
   return ok ? err : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" int tsp_band_spmm(const float* val, const int* bloc,
+                             const int* pb, const int* cw, const float* x,
+                             float* y, int nchunks, int c_cols, int k_panels,
+                             int k_rhs, void* stream) {
+  return launch(val, bloc, pb, cw, x, y, nchunks, c_cols, k_panels, k_rhs,
+                stream);
+}
+
+extern "C" int tsp_band_spmm_bf16(const __nv_bfloat16* val, const int* bloc,
+                                  const int* pb, const int* cw,
+                                  const float* x, float* y, int nchunks,
+                                  int c_cols, int k_panels, int k_rhs,
+                                  void* stream) {
+  return launch(val, bloc, pb, cw, x, y, nchunks, c_cols, k_panels, k_rhs,
+                stream);
 }

@@ -1,4 +1,4 @@
-// Dense-tile class SpMV for sm_90a, f32 and f64.
+// Dense-tile class SpMV for sm_90a, f32, f64 and bf16 values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_dense_kernel (called by
 // dense_class_call :679: the f32 one-hot route, and the df64 branch
@@ -30,10 +30,14 @@
 //   non-finite x meets 0 as in the Pallas kernel and dense_reference;
 // * each (tile, row) sum is added with one atomicAdd (native for double
 //   on sm_60 and later): tiles of one tile-row meet across chunks.
+// The bf16 instance reads bf16 values (512 B a tile) and computes as the
+// f32 one, on f32 x and y (values.cuh).
 // scripts/dense_probes.py times this kernel against copies of it without
 // the group list (every lane group, a block with no active lane exiting
 // whole) or without the mask (every column), PERF.md.
 #include <cuda_runtime.h>
+
+#include "values.cuh"
 
 namespace {
 
@@ -49,9 +53,10 @@ __device__ __forceinline__ double fmadd(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-template <typename V>
+// Val: the plan's value type; V: the compute type of x, y and the sums
+template <typename Val, typename V = tsp::acc_t<Val>>
 __global__ void __launch_bounds__(kLanes * kWarps)
-dense_kernel(const V* __restrict__ val, const int* __restrict__ meta,
+dense_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
              const int* __restrict__ cmask, const int* __restrict__ groups,
              const int* __restrict__ pb, const int* __restrict__ cw,
              const V* __restrict__ x, V* __restrict__ y, int t_lanes,
@@ -67,11 +72,12 @@ dense_kernel(const V* __restrict__ val, const int* __restrict__ meta,
   const bool active = mc[l] >= 0;
   const unsigned mask = active ? cmask[(long long)c * t_lanes + t0 + l] : 0u;
   // the values first: they do not wait for x
-  const V* v = val + ((long long)c * kB * kB + i) * t_lanes + t0 + l;
+  const Val* v = val + ((long long)c * kB * kB + i) * t_lanes + t0 + l;
   V a[kB];
 #pragma unroll
   for (int j = 0; j < kB; ++j) {
-    a[j] = (mask >> j & 1u) ? v[(long long)j * kB * t_lanes] : V(0);
+    a[j] = (mask >> j & 1u) ? tsp::to_acc(v[(long long)j * kB * t_lanes])
+                            : V(0);
   }
   // the group's x blocks, entry (tile, column) by thread: 16 neighbouring
   // threads read one tile's 16 values
@@ -92,14 +98,14 @@ dense_kernel(const V* __restrict__ val, const int* __restrict__ meta,
 }
 
 // grid x: the `nblocks` lane groups; grid y: kWarps tile rows a block
-template <typename V>
-int launch(const V* val, const int* meta, const int* cmask,
+template <typename Val, typename V>
+int launch(const Val* val, const int* meta, const int* cmask,
            const int* groups, int nblocks, const int* pb, const int* cw,
            const V* x, V* y, int t_lanes, int k_panels, int c_batch,
            void* stream) {
   if (t_lanes % kLanes) return static_cast<int>(cudaErrorInvalidValue);
   if (nblocks > 0) {
-    dense_kernel<V>
+    dense_kernel<Val>
         <<<dim3(static_cast<unsigned>(nblocks), kB / kWarps),
            kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
             val, meta, cmask, groups, pb, cw, x, y, t_lanes, k_panels,
@@ -124,6 +130,15 @@ extern "C" int tsp_dense_f64(const double* val, const int* meta,
                              int ngroups, const int* pb, const int* cw,
                              const double* x, double* y, int t_lanes,
                              int k_panels, int c_batch, void* stream) {
+  return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
+                k_panels, c_batch, stream);
+}
+
+extern "C" int tsp_dense_bf16(const __nv_bfloat16* val, const int* meta,
+                              const int* cmask, const int* groups,
+                              int ngroups, const int* pb, const int* cw,
+                              const float* x, float* y, int t_lanes,
+                              int k_panels, int c_batch, void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
                 k_panels, c_batch, stream);
 }

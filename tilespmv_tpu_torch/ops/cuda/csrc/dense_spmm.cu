@@ -1,4 +1,5 @@
-// Dense-tile class SpMM over k right-hand sides for sm_90a.
+// Dense-tile class SpMM over k right-hand sides for sm_90a, f32 and bf16
+// values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_dense_spmm_kernel (called
 // by dense_spmm_call): for chunk c of step c/c_batch, lane t with
@@ -27,12 +28,15 @@
 // * a (tile, row)'s K sums go into Y by vector atomics (sm_90's float4 /
 //   float2 atomicAdd in global memory, 4 or 2 columns an atomic where K
 //   allows): tiles of one tile row meet across chunks.
+// The bf16 instance reads bf16 values (512 B a tile) into the same
+// registers as floats; X, Y and the staging are f32 (values.cuh).
 // scripts/spmm_probes.py times copies of it over every lane group, with
 // every column loaded, with scalar atomics (VEC_ATOMICS 0) and with 4 tile
 // rows a block (kWarps 4).
 #include <cuda_runtime.h>
 
 #include "spmm_k.cuh"
+#include "values.cuh"
 
 // 1: 4 or 2 columns an atomicAdd where K allows (sm_90's float4 / float2
 // atomicAdd in global memory); 0: one column each
@@ -53,9 +57,10 @@ __host__ __device__ constexpr int xs_stride() {
   return kB * K + 4;
 }
 
-template <int K>
+// Val: the plan's value type (float or bf16); X, Y and the sums are f32
+template <int K, typename Val>
 __global__ void __launch_bounds__(kLanes * kWarps)
-dense_spmm_kernel(const float* __restrict__ val, const int* __restrict__ meta,
+dense_spmm_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
                   const int* __restrict__ cmask,
                   const int* __restrict__ groups, const int* __restrict__ pb,
                   const int* __restrict__ cw, const float* __restrict__ x,
@@ -76,11 +81,12 @@ dense_spmm_kernel(const float* __restrict__ val, const int* __restrict__ meta,
   const bool active = xloc >= 0;
   const unsigned mask = active ? cmask[(long long)c * t_lanes + t0 + l] : 0u;
   // the values first: they do not wait for X
-  const float* v = val + ((long long)c * kB * kB + i) * t_lanes + t0 + l;
+  const Val* v = val + ((long long)c * kB * kB + i) * t_lanes + t0 + l;
   float a[kB];
 #pragma unroll
   for (int j = 0; j < kB; ++j) {
-    a[j] = (mask >> j & 1u) ? v[(long long)j * kB * t_lanes] : 0.f;
+    a[j] = (mask >> j & 1u) ? tsp::to_acc(v[(long long)j * kB * t_lanes])
+                            : 0.f;
   }
   // the lane's X block, kVec float4: float4 q, q + kWarps, ... by the
   // thread of warp q
@@ -107,19 +113,16 @@ dense_spmm_kernel(const float* __restrict__ val, const int* __restrict__ meta,
   tsp::atomic_add_row<K, kV>(yr, acc);
 }
 
-}  // namespace
-
 // grid x: the `ngroups` lane groups; grid y: kWarps tile rows a block
-extern "C" int tsp_dense_spmm(const float* val, const int* meta,
-                              const int* cmask, const int* groups,
-                              int ngroups, const int* pb, const int* cw,
-                              const float* x, float* y, int t_lanes,
-                              int k_panels, int c_batch, int k_rhs,
-                              void* stream) {
+template <typename Val>
+int launch(const Val* val, const int* meta, const int* cmask,
+           const int* groups, int ngroups, const int* pb, const int* cw,
+           const float* x, float* y, int t_lanes, int k_panels, int c_batch,
+           int k_rhs, void* stream) {
   if (t_lanes % kLanes) return static_cast<int>(cudaErrorInvalidValue);
   const bool ok = tsp::with_k(k_rhs, [&](auto kc) {
     if (ngroups > 0) {
-      dense_spmm_kernel<decltype(kc)::value>
+      dense_spmm_kernel<decltype(kc)::value, Val>
           <<<dim3(static_cast<unsigned>(ngroups), kB / kWarps),
              kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
               val, meta, cmask, groups, pb, cw, x, y, t_lanes, k_panels,
@@ -128,4 +131,26 @@ extern "C" int tsp_dense_spmm(const float* val, const int* meta,
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tsp_dense_spmm(const float* val, const int* meta,
+                              const int* cmask, const int* groups,
+                              int ngroups, const int* pb, const int* cw,
+                              const float* x, float* y, int t_lanes,
+                              int k_panels, int c_batch, int k_rhs,
+                              void* stream) {
+  return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
+                k_panels, c_batch, k_rhs, stream);
+}
+
+extern "C" int tsp_dense_spmm_bf16(const __nv_bfloat16* val, const int* meta,
+                                   const int* cmask, const int* groups,
+                                   int ngroups, const int* pb, const int* cw,
+                                   const float* x, float* y, int t_lanes,
+                                   int k_panels, int c_batch, int k_rhs,
+                                   void* stream) {
+  return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
+                k_panels, c_batch, k_rhs, stream);
 }

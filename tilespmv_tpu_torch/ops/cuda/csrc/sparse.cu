@@ -1,4 +1,4 @@
-// Packed sparse-entry (W-class) SpMV for sm_90a.
+// Packed sparse-entry (W-class) SpMV for sm_90a, f32 and bf16 values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_sparse_kernel (called by
 // sparse_class_call, f32 one-hot route). A tile (chunk c, lane t) holds
@@ -36,9 +36,13 @@
 // Each row sums its own slots: a non-finite x reaches only the rows whose
 // entries read it, as in the CSR product (the TPU's differences of a
 // prefix over every slot put NaN in other rows of the tile; ROADMAP.md C).
+// The bf16 instance reads bf16 values (~3 bytes per stored entry) and
+// computes as the f32 one, on f32 x and y (values.cuh).
 // scripts/sparse_probes.py times kSlots in {8, 16, 32}, one atomic per
 // (tile, row), and copies with parts of the work taken out.
 #include <cuda_runtime.h>
+
+#include "values.cuh"
 
 namespace {
 
@@ -54,8 +58,10 @@ __device__ __forceinline__ int rend_byte(const unsigned* rw, int r) {
   return static_cast<int>(rw[r >> 2] >> ((r & 3) * 8) & 255u);
 }
 
+// Val: the plan's value type (float or bf16); x, y and the sums are f32
+template <typename Val>
 __global__ void __launch_bounds__(kLanes * kMaxWarps)
-sparse_kernel(const float* __restrict__ val, const int* __restrict__ meta,
+sparse_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
               const int* __restrict__ pb, const int* __restrict__ cw,
               const float* __restrict__ x, float* __restrict__ y,
               int width, int t_lanes, int k_panels, int c_batch) {
@@ -97,11 +103,12 @@ sparse_kernel(const float* __restrict__ val, const int* __restrict__ meta,
         ? static_cast<unsigned>(mc[(long long)(2 + s / 8) * t_lanes + l])
         : 0u;
   }
-  const float* vc = val + (long long)c * width * t_lanes + t0 + l;
+  const Val* vc = val + (long long)c * width * t_lanes + t0 + l;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     const int s = s0 + k;
-    v[k] = s >= 1 && s <= last ? vc[(long long)s * t_lanes] : 0.f;
+    v[k] = s >= 1 && s <= last ? tsp::to_acc(vc[(long long)s * t_lanes])
+                               : 0.f;
   }
   // the lane's x block, columns q, q + warps, ... by warp q, all of a
   // thread's columns in flight
@@ -189,21 +196,37 @@ sparse_kernel(const float* __restrict__ val, const int* __restrict__ meta,
   }
 }
 
-}  // namespace
-
-extern "C" int tsp_sparse(const float* val, const int* meta, const int* pb,
-                          const int* cw, const float* x, float* y,
-                          int nchunks, int width, int t_lanes, int k_panels,
-                          int c_batch, void* stream) {
+template <typename Val>
+int launch(const Val* val, const int* meta, const int* pb, const int* cw,
+           const float* x, float* y, int nchunks, int width, int t_lanes,
+           int k_panels, int c_batch, void* stream) {
   if (width < 8 || width > kMaxW || width % 8 || t_lanes % kLanes ||
       k_panels < 1 || k_panels > kMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nchunks > 0) {
     const int warps = (width + kSlots - 1) / kSlots;
-    sparse_kernel<<<nchunks * (t_lanes / kLanes), kLanes * warps, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    sparse_kernel<Val><<<nchunks * (t_lanes / kLanes), kLanes * warps, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
         val, meta, pb, cw, x, y, width, t_lanes, k_panels, c_batch);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tsp_sparse(const float* val, const int* meta, const int* pb,
+                          const int* cw, const float* x, float* y,
+                          int nchunks, int width, int t_lanes, int k_panels,
+                          int c_batch, void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
+                c_batch, stream);
+}
+
+extern "C" int tsp_sparse_bf16(const __nv_bfloat16* val, const int* meta,
+                               const int* pb, const int* cw, const float* x,
+                               float* y, int nchunks, int width, int t_lanes,
+                               int k_panels, int c_batch, void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
+                c_batch, stream);
 }

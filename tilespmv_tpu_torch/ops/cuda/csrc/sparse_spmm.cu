@@ -1,4 +1,5 @@
-// Packed sparse-entry (W-class) SpMM over k right-hand sides for sm_90a.
+// Packed sparse-entry (W-class) SpMM over k right-hand sides for sm_90a,
+// f32 and bf16 values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_sparse_spmm_kernel (called
 // by sparse_spmm_call). The tile layout is sparse.cu's: W value slots
@@ -36,11 +37,14 @@
 // most (66 KB at K = 16, above the 48 KB a block gets without opting
 // in). Each row sums its own slots: a non-finite X reaches only the rows
 // whose entries read it, as in the CSR product (ROADMAP.md C).
+// The bf16 instance reads bf16 values into the same registers as floats;
+// X, Y and the sums are f32 (values.cuh).
 // scripts/spmm_probes.py times kSlots, kLanes, atomics for every row's
 // sums (kOwnRows 0) and scalar atomics in the flush (VEC_ATOMICS 0).
 #include <cuda_runtime.h>
 
 #include "spmm_k.cuh"
+#include "values.cuh"
 
 // 1: the flush adds 4 or 2 columns an atomicAdd where K allows (sm_90's
 // float4 / float2 atomicAdd in global memory); 0: one column each
@@ -101,9 +105,10 @@ __device__ __forceinline__ void store4(float* p, float4 a) {
   }
 }
 
-template <int K>
+// Val: the plan's value type (float or bf16); X, Y and the sums are f32
+template <int K, typename Val>
 __global__ void __launch_bounds__(kMaxThreads)
-sparse_spmm_kernel(const float* __restrict__ val,
+sparse_spmm_kernel(const Val* __restrict__ val,
                    const int* __restrict__ meta, const int* __restrict__ pb,
                    const int* __restrict__ cw, const float* __restrict__ x,
                    float* __restrict__ y, int width, int t_lanes,
@@ -152,11 +157,12 @@ sparse_spmm_kernel(const float* __restrict__ val,
         ? static_cast<unsigned>(mc[(long long)(2 + s / 8) * t_lanes + l])
         : 0u;
   }
-  const float* vc = val + (long long)c * width * t_lanes + t0 + l;
+  const Val* vc = val + (long long)c * width * t_lanes + t0 + l;
 #pragma unroll
   for (int k = 0; k < kSlots; ++k) {
     const int s = s0 + k;
-    v[k] = s >= 1 && s <= last ? vc[(long long)s * t_lanes] : 0.f;
+    v[k] = s >= 1 && s <= last ? tsp::to_acc(vc[(long long)s * t_lanes])
+                               : 0.f;
   }
   // the lane's X block, 4K float4: float4 q, q + groups, ... by the
   // thread of slot group q
@@ -258,13 +264,10 @@ sparse_spmm_kernel(const float* __restrict__ val,
   }
 }
 
-}  // namespace
-
-extern "C" int tsp_sparse_spmm(const float* val, const int* meta,
-                               const int* pb, const int* cw, const float* x,
-                               float* y, int nchunks, int width, int t_lanes,
-                               int k_panels, int c_batch, int k_rhs,
-                               void* stream) {
+template <typename Val>
+int launch(const Val* val, const int* meta, const int* pb, const int* cw,
+           const float* x, float* y, int nchunks, int width, int t_lanes,
+           int k_panels, int c_batch, int k_rhs, void* stream) {
   if (width < 8 || width > kMaxW || width % 8 || t_lanes % kLanes ||
       k_panels < 1 || k_panels > kMaxPanels) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -273,18 +276,38 @@ extern "C" int tsp_sparse_spmm(const float* val, const int* meta,
   const bool ok = tsp::with_k(k_rhs, [&](auto kc) {
     constexpr int K = decltype(kc)::value;
     static const cudaError_t attr = cudaFuncSetAttribute(
-        sparse_spmm_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<K>());
+        sparse_spmm_kernel<K, Val>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<K>());
     if (attr != cudaSuccess) {
       err = static_cast<int>(attr);
     } else if (nchunks > 0) {
       const int groups = (width + kSlots - 1) / kSlots;
-      sparse_spmm_kernel<K><<<nchunks * (t_lanes / kLanes), kLanes * groups,
-                              smem_bytes<K>(),
-                              static_cast<cudaStream_t>(stream)>>>(
+      sparse_spmm_kernel<K, Val>
+          <<<nchunks * (t_lanes / kLanes), kLanes * groups, smem_bytes<K>(),
+             static_cast<cudaStream_t>(stream)>>>(
           val, meta, pb, cw, x, y, width, t_lanes, k_panels, c_batch);
       err = static_cast<int>(cudaGetLastError());
     }
   });
   return ok ? err : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" int tsp_sparse_spmm(const float* val, const int* meta,
+                               const int* pb, const int* cw, const float* x,
+                               float* y, int nchunks, int width, int t_lanes,
+                               int k_panels, int c_batch, int k_rhs,
+                               void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
+                c_batch, k_rhs, stream);
+}
+
+extern "C" int tsp_sparse_spmm_bf16(const __nv_bfloat16* val, const int* meta,
+                                    const int* pb, const int* cw,
+                                    const float* x, float* y, int nchunks,
+                                    int width, int t_lanes, int k_panels,
+                                    int c_batch, int k_rhs, void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
+                c_batch, k_rhs, stream);
 }

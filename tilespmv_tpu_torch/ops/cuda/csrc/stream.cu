@@ -1,4 +1,5 @@
-// Entry-stream (COO-tile) class SpMV for sm_90a, f32 and f64.
+// Entry-stream (COO-tile) class SpMV for sm_90a, f32, f64 and bf16
+// values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_stream_kernel with its f32
 // body _stream_step (called by stream_class_call, rounds scatter), and
@@ -20,20 +21,24 @@
 // r = -1 marks lane 0 and padding.
 //
 // Bound: device-memory bytes, 8 B per f32 slot (4 B value, 2 B vidx, 2 B
-// erow) and 12 B per f64 slot, read once; x (a few MB) is gathered from
-// L2. Design: a block of 256 threads takes `group` consecutive slabs of
-// one step (grid nsteps * ceil(S / group), so the parallelism does not
-// follow the planner's S); warp k reads sublane k of each slab, 4
-// consecutive lanes per thread as one 16-B value load (two for f64) and
-// 8-B vidx and erow loads. erow is non-decreasing along a sublane's
-// entries, so a segmented inclusive scan keyed on it (in registers, then
-// across the warp by shuffles) sums each run of one row, and the run's
-// last lane adds it into the block's 1024-entry window in shared memory.
-// After the group, one atomicAdd per nonzero window entry into y: the
-// window's other groups and steps run in other blocks. Steps whose slabs
-// are all padding (sactive = 0) return at once; a sublane with no entry
-// skips its value loads and gathers.
+// erow), 12 B per f64 slot and 6 B per bf16 slot, read once; x (a few MB)
+// is gathered from L2. Design: a block of 256 threads takes `group`
+// consecutive slabs of one step (grid nsteps * ceil(S / group), so the
+// parallelism does not follow the planner's S); warp k reads sublane k of
+// each slab, 4 consecutive lanes per thread as one 16-B value load (two
+// for f64, one 8-B load for bf16) and 8-B vidx and erow loads. erow is
+// non-decreasing along a sublane's entries, so a segmented inclusive scan
+// keyed on it (in registers, then across the warp by shuffles) sums each
+// run of one row, and the run's last lane adds it into the block's
+// 1024-entry window in shared memory. After the group, one atomicAdd per
+// nonzero window entry into y: the window's other groups and steps run in
+// other blocks. Steps whose slabs are all padding (sactive = 0) return at
+// once; a sublane with no entry skips its value loads and gathers. bf16
+// values are widened to f32 as they are loaded; x, y and the sums are f32
+// (values.cuh).
 #include <cuda_runtime.h>
+
+#include "values.cuh"
 
 namespace {
 
@@ -54,6 +59,14 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+// four bf16 as floats from one 8-B load
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 lo = tsp::bf16x2_to_float2(a.x);
+  const float2 hi = tsp::bf16x2_to_float2(a.y);
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
 // four int16 as ints (sign-extended) from one 8-B load
 __device__ __forceinline__ void load4(const short* p, int (&v)[4]) {
   const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
@@ -63,9 +76,10 @@ __device__ __forceinline__ void load4(const short* p, int (&v)[4]) {
   v[3] = static_cast<short>(a.y >> 16);
 }
 
-template <typename V>
+// Val: the plan's value type; V: the compute type of x, y and the sums
+template <typename Val, typename V = tsp::acc_t<Val>>
 __global__ void __launch_bounds__(kThreads)
-stream_kernel(const V* __restrict__ val, const short* __restrict__ vidx,
+stream_kernel(const Val* __restrict__ val, const short* __restrict__ vidx,
               const short* __restrict__ erow,
               const int* __restrict__ sbase, const int* __restrict__ sbase2,
               const int* __restrict__ xmap, const int* __restrict__ cw,
@@ -162,8 +176,8 @@ stream_kernel(const V* __restrict__ val, const short* __restrict__ vidx,
   }
 }
 
-template <typename V>
-int launch(const V* val, const short* vidx, const short* erow,
+template <typename Val, typename V>
+int launch(const Val* val, const short* vidx, const short* erow,
            const int* sbase, const int* sbase2, const int* xmap,
            const int* cw, const int* sactive, const V* x, V* y, int nsteps,
            int s_batch, int span_rows, int group, void* stream) {
@@ -172,8 +186,8 @@ int launch(const V* val, const short* vidx, const short* erow,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nsteps > 0) {
-    stream_kernel<V><<<nsteps * gps, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+    stream_kernel<Val><<<nsteps * gps, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
         val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
         group, gps, span_rows);
   }
@@ -199,6 +213,17 @@ extern "C" int tsp_stream_f64(const double* val, const short* vidx,
                               const double* x, double* y, int nsteps,
                               int s_batch, int span_rows, int group,
                               void* stream) {
+  return launch(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
+                nsteps, s_batch, span_rows, group, stream);
+}
+
+extern "C" int tsp_stream_bf16(const __nv_bfloat16* val, const short* vidx,
+                               const short* erow, const int* sbase,
+                               const int* sbase2, const int* xmap,
+                               const int* cw, const int* sactive,
+                               const float* x, float* y, int nsteps,
+                               int s_batch, int span_rows, int group,
+                               void* stream) {
   return launch(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
                 nsteps, s_batch, span_rows, group, stream);
 }

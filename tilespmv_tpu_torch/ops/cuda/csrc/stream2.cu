@@ -1,4 +1,5 @@
-// Entry-stream (COO-tile) class over k right-hand sides for sm_90a.
+// Entry-stream (COO-tile) class over k right-hand sides for sm_90a, f32 and
+// bf16 values.
 //
 // Replaces tilespmv_tpu/ops/pallas/kernels.py:_stream_kernel2 (called by
 // stream_class_call2, one RHS pair a call): it computes what that kernel
@@ -32,13 +33,16 @@
 //   atomics in shared memory are compare-and-swap loops, and a run is
 //   mostly one entry long, so there are K of them per entry.
 // Steps whose slabs are all padding (sactive = 0) return at once; a
-// warp's lanes with no entry skip their value loads and gathers.
+// warp's lanes with no entry skip their value loads and gathers. The bf16
+// instance reads 6 B a slot, its values widened to f32 as they are
+// loaded; X, Y and the sums are f32 (values.cuh).
 // scripts/spmm_probes.py times kScan 0 (no warp scan: each thread's runs
 // add into Y), kWindowed 1, kProducts, scalar atomics (VEC_ATOMICS 0),
 // kMinBlocks, the group and k/2 launches at K = 2 (PERF.md).
 #include <cuda_runtime.h>
 
 #include "spmm_k.cuh"
+#include "values.cuh"
 
 // 1: the adds into Y take 4 or 2 columns an atomicAdd where K and ld
 // allow (sm_90's float4 / float2 atomicAdd in global memory); 0: one
@@ -81,6 +85,26 @@ __device__ __forceinline__ void load_lanes(const float* p, float (&v)[L]) {
   }
 }
 
+// L bf16 as floats from one load
+template <int L>
+__device__ __forceinline__ void load_lanes(const __nv_bfloat16* p,
+                                           float (&v)[L]) {
+  if constexpr (L == 4) {
+    const uint2 a = __ldcs(reinterpret_cast<const uint2*>(p));
+    const float2 lo = tsp::bf16x2_to_float2(a.x);
+    const float2 hi = tsp::bf16x2_to_float2(a.y);
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+  } else if constexpr (L == 2) {
+    const float2 a =
+        tsp::bf16x2_to_float2(__ldcs(reinterpret_cast<const unsigned*>(p)));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = __uint_as_float(
+        static_cast<unsigned>(
+            __ldcs(reinterpret_cast<const unsigned short*>(p))) << 16);
+  }
+}
+
 // L int16 as ints (sign-extended) from one load
 template <int L>
 __device__ __forceinline__ void load_lanes(const short* p, int (&v)[L]) {
@@ -99,9 +123,10 @@ __device__ __forceinline__ void load_lanes(const short* p, int (&v)[L]) {
   }
 }
 
-template <int K>
+// Val: the plan's value type (float or bf16); X, Y and the sums are f32
+template <int K, typename Val>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-stream_spmm_kernel(const float* __restrict__ val,
+stream_spmm_kernel(const Val* __restrict__ val,
                    const short* __restrict__ vidx,
                    const short* __restrict__ erow,
                    const int* __restrict__ sbase,
@@ -254,31 +279,29 @@ __host__ __device__ constexpr int win_bytes() {
   return kWindowed ? kWindow * win_stride<K>() * 4 : 0;
 }
 
-template <int K>
-int launch(const float* val, const short* vidx, const short* erow,
+template <int K, typename Val>
+int launch(const Val* val, const short* vidx, const short* erow,
            const int* sbase, const int* sbase2, const int* xmap,
            const int* cw, const int* sactive, const float* x, float* y,
            int nsteps, int s_batch, int span_rows, int group, int gps,
            int ld, cudaStream_t stream) {
   constexpr int bytes = win_bytes<K>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      stream_spmm_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      stream_spmm_kernel<K, Val>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  stream_spmm_kernel<K><<<nsteps * gps, kThreads, bytes, stream>>>(
+  stream_spmm_kernel<K, Val><<<nsteps * gps, kThreads, bytes, stream>>>(
       val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, s_batch,
       group, gps, span_rows, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int tsp_stream2(const float* val, const short* vidx,
-                           const short* erow, const int* sbase,
-                           const int* sbase2, const int* xmap, const int* cw,
-                           const int* sactive, const float* x, float* y,
-                           int nsteps, int s_batch, int span_rows, int group,
-                           int k_rhs, int ld, void* stream) {
+template <typename Val>
+int launch_k(const Val* val, const short* vidx, const short* erow,
+             const int* sbase, const int* sbase2, const int* xmap,
+             const int* cw, const int* sactive, const float* x, float* y,
+             int nsteps, int s_batch, int span_rows, int group, int k_rhs,
+             int ld, void* stream) {
   const int gps = group > 0 ? (s_batch + group - 1) / group : 0;
   if (gps < 1 || ld < k_rhs || (long long)nsteps * gps > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -289,11 +312,34 @@ extern "C" int tsp_stream2(const float* val, const short* vidx,
     if (ld % tsp::vec_width<K>()) {     // rows not aligned for vector use
       err = static_cast<int>(cudaErrorInvalidValue);
     } else if (nsteps > 0) {
-      err = launch<K>(
+      err = launch<K, Val>(
           val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y, nsteps,
           s_batch, span_rows, group, gps, ld,
           static_cast<cudaStream_t>(stream));
     }
   });
   return ok ? err : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" int tsp_stream2(const float* val, const short* vidx,
+                           const short* erow, const int* sbase,
+                           const int* sbase2, const int* xmap, const int* cw,
+                           const int* sactive, const float* x, float* y,
+                           int nsteps, int s_batch, int span_rows, int group,
+                           int k_rhs, int ld, void* stream) {
+  return launch_k(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
+                  nsteps, s_batch, span_rows, group, k_rhs, ld, stream);
+}
+
+extern "C" int tsp_stream2_bf16(const __nv_bfloat16* val, const short* vidx,
+                                const short* erow, const int* sbase,
+                                const int* sbase2, const int* xmap,
+                                const int* cw, const int* sactive,
+                                const float* x, float* y, int nsteps,
+                                int s_batch, int span_rows, int group,
+                                int k_rhs, int ld, void* stream) {
+  return launch_k(val, vidx, erow, sbase, sbase2, xmap, cw, sactive, x, y,
+                  nsteps, s_batch, span_rows, group, k_rhs, ld, stream);
 }

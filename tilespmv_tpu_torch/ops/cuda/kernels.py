@@ -3,20 +3,22 @@ assemble.
 
 Each SpMV wrapper `*_spmv(cls, x, y)` checks its inputs and adds its
 class's contribution into the flat `y` in place (see reference.py for
-the index arithmetic), in the dtype of the class's `val`, which x and y
-share: float32, or float64 for the band, dense and stream classes of an
-f64 plan (the `*_f64` kernels); each SpMM wrapper (`band_spmm`,
-`dense_spmm`, `sparse_spmm`, `stream_spmm`, for k in SPMM_K) does the
-same for x (rows, k) and y (ylen, k), row-major, in float32 (an f64
-operator runs one SpMV per column). `x` must be padded by
+the index arithmetic), in the compute dtype of the class's `val`
+(lane_plan.acc_dtype), which x and y share: float32 for float32 and
+bfloat16 values (the `*_bf16` kernels read bf16 values and compute in
+f32), float64 for the band, dense and stream classes of an f64 plan (the
+`*_f64` kernels); each SpMM wrapper (`band_spmm`, `dense_spmm`,
+`sparse_spmm`, `stream_spmm`, for k in SPMM_K) does the same for x
+(rows, k) and y (ylen, k), row-major, in float32, on f32 or bf16 values
+(an f64 operator runs one SpMV per column). `x` must be padded by
 `reference.pad_x` and `y` span the plan's windows, as
 `reference.assemble` / `assemble_mm` allocate them: the kernels index
 both from plan values. Given CPU tensors a wrapper runs the
 class's plain PyTorch version; given CUDA tensors it launches the kernel
 on the current stream (building the library on first use) or raises.
 `LAUNCHES` counts kernel launches per kernel (`band` the f32 band
-kernel, `band_f64` the f64 one, ...); it moves only where a kernel is
-launched.
+kernel, `band_f64` the f64 one, `band_bf16` the bf16 one, ...); it moves
+only where a kernel is launched.
 
 `microbench_gather` and `microbench_scatter` wrap the two
 microbenchmark kernels (the reference's scripts/microbench_*.py), whose
@@ -31,9 +33,10 @@ import torch
 
 from . import build
 from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, LanePlan,
-                        sparse_meta_rows)
+                        acc_dtype, sparse_meta_rows)
 from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
-                        MB_SCATTER_ARMS, MB_SLABS, assemble, assemble_mm,
+                        MB_SCATTER_ARMS, MB_SLABS, assemble,
+                        assemble_mm,
                         band_reference, band_spmm_reference,
                         dense_reference, dense_spmm_reference,
                         microbench_gather_reference,
@@ -56,12 +59,18 @@ BAND_GROUP = 32
 # of {1, 2, 4, S} on the flagship stream classes of both dtypes, and
 # stream2.cu's of {1, 2, 4, 8, S} at k = 8 and 16 (PERF.md)
 STREAM_GROUP = 2
+# value dtypes of the kernels: the suffix of their LAUNCHES key and C
+# entry (tsp_<kernel><suffix>)
+_SUFFIX = {torch.float32: "", torch.float64: "_f64", torch.bfloat16: "_bf16"}
+# value dtypes of the W-class and SpMM kernels (no f64 instances)
+_F32_BF16 = (torch.float32, torch.bfloat16)
 LAUNCHES = {"band": 0, "dense": 0, "sparse": 0, "stream": 0,
             "band_spmm": 0, "dense_spmm": 0, "sparse_spmm": 0, "stream2": 0,
             "band_f64": 0, "dense_f64": 0, "stream_f64": 0,
+            **{k + "_bf16": 0 for k in (
+                "band", "dense", "sparse", "stream", "band_spmm",
+                "dense_spmm", "sparse_spmm", "stream2")},
             "microbench_gather": 0, "microbench_scatter": 0}
-# value dtypes of the SpMV kernels: (LAUNCHES suffix, C entry suffix)
-_SUFFIX = {torch.float32: "", torch.float64: "_f64"}
 
 
 def reset_launch_counts() -> None:
@@ -98,18 +107,20 @@ def _use_kernel(y: torch.Tensor) -> bool:
     return True
 
 
-def _value_dtype(val) -> torch.dtype:
-    """The class's value dtype (float32 or float64), which x and y must
-    share."""
-    if not isinstance(val, torch.Tensor) or val.dtype not in _SUFFIX:
+def _value_dtype(val, dtypes=tuple(_SUFFIX)) -> torch.dtype:
+    """The class's value dtype, one of `dtypes`."""
+    if not isinstance(val, torch.Tensor) or val.dtype not in dtypes:
         raise TypeError(f"class values: {getattr(val, 'dtype', val)}, "
-                        f"expected one of {tuple(_SUFFIX)}")
+                        f"expected one of {dtypes}")
     return val.dtype
 
 
 def _check_xy(x, y, dtype=torch.float32) -> None:
-    if x.dtype != dtype or y.dtype != dtype:
-        raise TypeError(f"x and y must be {dtype} like the class values, "
+    """x and y of a class of value dtype `dtype`: in its compute
+    dtype."""
+    want = acc_dtype(dtype)
+    if x.dtype != want or y.dtype != want:
+        raise TypeError(f"x and y must be {want} for {dtype} class values, "
                         f"got {x.dtype} and {y.dtype}")
     if x.dim() != 1 or y.dim() != 1 or not x.is_contiguous() \
             or not y.is_contiguous():
@@ -183,12 +194,12 @@ def _check_dense_derived(d, nch: int, dev) -> int:
     return ng
 
 
-def _check_sparse(s, dev) -> int:
+def _check_sparse(s, dev, dtype=torch.float32) -> int:
     nch, W, T = s.val.shape[0], s.width, s.t_lanes
     if nch % s.c_batch:
         raise ValueError("sparse: chunk count not a multiple of c_batch")
     nsteps = nch // s.c_batch
-    _check("sparse.val", s.val, torch.float32, (nch, W, T), dev)
+    _check("sparse.val", s.val, dtype, (nch, W, T), dev)
     _check("sparse.meta", s.meta, torch.int32,
            (nch, sparse_meta_rows(W), T), dev)
     _check("pb", s.pb, torch.int32, (nsteps * s.k_panels,), dev)
@@ -242,8 +253,9 @@ def dense_launch(d, table: bool = True, k: int = 1) -> dict:
     sectors = int(cols.view(nch, 16, T // per, per).any(dim=3).sum())
     active = int((d.meta[:, 0] >= 0).sum())
     val_bytes = sectors * 16 * 32
+    xb = acc_dtype(d.val.dtype).itemsize
     nbytes = (val_bytes + ng * (1 + 3 * DENSE_GROUP) * 4
-              + active * 2 * 16 * vb * k)
+              + active * 2 * 16 * xb * k)
     return dict(blocks=ng * (16 // DENSE_ROWS),
                 threads=ng * 16 * DENSE_GROUP, active=active,
                 slots=nch * T, val_bytes=val_bytes, bytes=nbytes)
@@ -267,15 +279,16 @@ def band_launch(bd, k: int = 1) -> dict:
     val_bytes = bd.val.numel() * vb
     index = sum(t.numel() * t.element_size()
                 for t in (bd.bloc, bd.pb, bd.cw))
-    nbytes = (val_bytes + index + xblocks * 16 * vb * k
-              + 2 * nch * ROW_WINDOW * 16 * vb * k)
+    xb = acc_dtype(bd.val.dtype).itemsize
+    nbytes = (val_bytes + index + xblocks * 16 * xb * k
+              + 2 * nch * ROW_WINDOW * 16 * xb * k)
     return dict(blocks=nch * ROW_WINDOW // BAND_GROUP, val_bytes=val_bytes,
                 bytes=nbytes)
 
 
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums
-    (f32 or f64)."""
+    (f32, f64 or bf16 values)."""
     dt = _value_dtype(bd.val)
     _check_xy(x, y, dt)
     nch, C = _check_band(bd, y.device, dt)
@@ -290,9 +303,9 @@ def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32 or
-    f64); the kernel runs the lane groups in `groups` and, in each tile,
-    the columns in its `cmask`."""
+    """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32, f64
+    or bf16 values); the kernel runs the lane groups in `groups` and, in
+    each tile, the columns in its `cmask`."""
     dt = _value_dtype(d.val)
     _check_xy(x, y, dt)
     nch = _check_dense(d, y.device, dt)
@@ -309,23 +322,26 @@ def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class: packed sparse-entry tiles, routed by meta[LROW]; each
-    row sums its own slots (sparse_rows_reference)."""
-    _check_xy(x, y)
-    nch = _check_sparse(s, y.device)
+    """W-class: packed sparse-entry tiles, routed by meta[LROW] (f32 or
+    bf16 values); each row sums its own slots (sparse_rows_reference)."""
+    dt = _value_dtype(s.val, _F32_BF16)
+    _check_xy(x, y, dt)
+    nch = _check_sparse(s, y.device, dt)
     if not _use_kernel(y):
         return sparse_rows_reference(s, x, y)
-    err = build.load().tsp_sparse(
+    name = "sparse" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
         nch, s.width, s.t_lanes, s.k_panels, s.c_batch, _stream())
-    _launched("sparse", err)
+    _launched(name, err)
     return y
 
 
 def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
                 group: int = STREAM_GROUP) -> torch.Tensor:
     """Stream class: entry slabs, each entry added into its own output
-    row `erow` (f32 or f64); a block takes `group` slabs of a step."""
+    row `erow` (f32, f64 or bf16 values); a block takes `group` slabs of
+    a step."""
     dt = _value_dtype(st.val)
     _check_xy(x, y, dt)
     nsteps = _check_stream(st, y.device, dt)
@@ -343,66 +359,75 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
 
 
 def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Band class over the k columns of x (rows, k) into y (ylen, k), every
-    product taken (band_reference)."""
+    """Band class (f32 or bf16 values) over the k columns of x (rows, k)
+    into y (ylen, k), every product taken (band_reference)."""
+    dt = _value_dtype(bd.val, _F32_BF16)
     k = _check_xy_mm("band_spmm", x, y)
-    nch, C = _check_band(bd, y.device)
+    nch, C = _check_band(bd, y.device, dt)
     if not _use_kernel(y):
         return band_spmm_reference(bd, x, y)
-    err = build.load().tsp_band_spmm(
+    name = "band_spmm" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
         nch, C, bd.k_panels, k, _stream())
-    _launched("band_spmm", err)
+    _launched(name, err)
     return y
 
 
 def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Dense class over the k columns of x (rows, k) into y (ylen, k); the
-    kernel runs the lane groups in `groups` and, in each tile, the
-    columns in its `cmask` (dense_active_reference)."""
+    """Dense class (f32 or bf16 values) over the k columns of x (rows, k)
+    into y (ylen, k); the kernel runs the lane groups in `groups` and, in
+    each tile, the columns in its `cmask` (dense_active_reference)."""
+    dt = _value_dtype(d.val, _F32_BF16)
     k = _check_xy_mm("dense_spmm", x, y)
-    nch = _check_dense(d, y.device)
+    nch = _check_dense(d, y.device, dt)
     ng = _check_dense_derived(d, nch, y.device)
     if not _use_kernel(y):
         return dense_spmm_reference(d, x, y)
-    err = build.load().tsp_dense_spmm(
+    name = "dense_spmm" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
         _p(d.cw), _p(x), _p(y), d.t_lanes, d.k_panels, d.c_batch, k,
         _stream())
-    _launched("dense_spmm", err)
+    _launched(name, err)
     return y
 
 
 def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """W-class over the k columns of x (rows, k) into y (ylen, k); each
-    row sums its own slots (sparse_spmm_reference)."""
+    """W-class (f32 or bf16 values) over the k columns of x (rows, k)
+    into y (ylen, k); each row sums its own slots
+    (sparse_spmm_reference)."""
+    dt = _value_dtype(s.val, _F32_BF16)
     k = _check_xy_mm("sparse_spmm", x, y)
-    nch = _check_sparse(s, y.device)
+    nch = _check_sparse(s, y.device, dt)
     if not _use_kernel(y):
         return sparse_spmm_reference(s, x, y)
-    err = build.load().tsp_sparse_spmm(
+    name = "sparse_spmm" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
         nch, s.width, s.t_lanes, s.k_panels, s.c_batch, k, _stream())
-    _launched("sparse_spmm", err)
+    _launched(name, err)
     return y
 
 
 def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Stream class over the k columns of x (rows, k) into y (ylen, k) in
-    one launch: each entry added into its own output row `erow` of every
-    column (stream_rows_reference); a block takes STREAM_GROUP slabs of
-    a step."""
+    """Stream class (f32 or bf16 values) over the k columns of x (rows, k)
+    into y (ylen, k) in one launch: each entry added into its own output
+    row `erow` of every column (stream_rows_reference); a block takes
+    STREAM_GROUP slabs of a step."""
+    dt = _value_dtype(st.val, _F32_BF16)
     k = _check_xy_mm("stream_spmm", x, y)
-    nsteps = _check_stream(st, y.device)
+    nsteps = _check_stream(st, y.device, dt)
     if not _use_kernel(y):
         return stream_rows_reference(st, x, y)
     sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
-    err = build.load().tsp_stream2(
+    name = "stream2" + _SUFFIX[dt]
+    err = getattr(build.load(), "tsp_" + name)(
         _p(st.val), _p(st.vidx), _p(st.erow), _p(st.sbase), _p(sb2),
         _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
         st.s_batch, st.span_rows, min(STREAM_GROUP, st.s_batch), k, k,
         _stream())
-    _launched("stream2", err)
+    _launched(name, err)
     return y
 
 
@@ -416,11 +441,11 @@ def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n, k) with k in SPMM_K, through the fused SpMM
-    kernels; on CPU tensors every class runs its plain version. f32
-    plans only."""
-    if plan.dtype != torch.float32:
-        raise TypeError(f"the fused SpMM kernels take f32 plans, not "
-                        f"{plan.dtype} (an f64 operator runs one SpMV "
+    kernels; on CPU tensors every class runs its plain version. f32 and
+    bf16 plans only."""
+    if plan.dtype not in _F32_BF16:
+        raise TypeError(f"the fused SpMM kernels take f32 and bf16 plans, "
+                        f"not {plan.dtype} (an f64 operator runs one SpMV "
                         "per column)")
     return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
                        stream_spmm)

@@ -1,9 +1,10 @@
-"""Lane-major chunked execution plan (f32 or f64), as NumPy arrays.
+"""Lane-major chunked execution plan (f32, f64 or bf16), as NumPy arrays.
 
 NumPy port of tilespmv_tpu/ops/pallas/lane_plan.py, held bit-equal to
-it by tests/test_torch_plan.py (f32) and tests/test_torch_f64_plan.py
-(f64), so both frameworks execute the very same plan. The classes and
-their layouts are the reference package's:
+it by tests/test_torch_plan.py (f32), tests/test_torch_f64_plan.py
+(f64) and tests/test_torch_bf16_plan.py (bf16), so both frameworks
+execute the very same plan. The classes and their layouts are the
+reference package's:
 
 * the **band (brick) class** — tile-row stripes whose non-COO tiles
   span at most BAND_MAX_COLS consecutive tile-columns become dense
@@ -32,6 +33,12 @@ f64 plan. Its value arrays keep the f32 layouts with float64 values:
 each is the reference's double-f32 parts summed in f64
 (stream_plan.f64_plan_value), so the kernels compute in native FP64.
 
+`build_lane_plan(tm, compute_dtype=BF16)` is the f32 plan (the
+reference's bf16 routing is f32's) with every value array rounded to
+bfloat16 (stream_plan.bf16_bits) and held as its uint16 bit patterns:
+NumPy has no bfloat16. The kernels read those values and compute in f32.
+`value_dtype` reads a value array's dtype, whatever form holds it.
+
 The routing and chunking cost constants are the reference planner's
 (measured on its own device). They are kept unchanged so the plans stay
 identical; re-fitting them to the H100 is later work. The
@@ -43,12 +50,34 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from ...core.tile_matrix import TileMatrix
 from ..plan import ResidualEngine
-from .stream_plan import (MAX_SPAN_ROWS, RW_ROWS, SPAN_ROWS, StreamChunks,
-                          build_stream_classes, f64_plan_value)
+from .stream_plan import (BF16, BF16_BITS, MAX_SPAN_ROWS, RW_ROWS,
+                          SPAN_ROWS, StreamChunks, bf16_values,
+                          build_stream_classes, f64_plan_value, is_bf16)
 from . import stream_plan as sp
+
+def value_dtype(a) -> torch.dtype:
+    """The dtype of plan value array `a` as a torch dtype, whatever holds
+    it: torch.bfloat16 for bf16 values as a tensor, as bf16 bits
+    (BF16_BITS), as the reference's NumPy bfloat16 or as the 2-byte void
+    items plan files load back as."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype
+    dt = np.dtype(a.dtype)
+    if dt == BF16_BITS or is_bf16(dt) or (dt.kind == "V"
+                                          and dt.itemsize == 2):
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, dt)).dtype
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The compute dtype of a plan of value dtype `dtype`: that of its x,
+    y and sums (float32 for bfloat16 values)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
 
 T_CHOICES = (128, 256, 512)   # tiles per chunk (lane-dim width classes)
 STREAM_MIN_ENTRIES = 2048     # below this the per-tile COO class wins
@@ -113,7 +142,7 @@ class DenseChunks:
     (`c_batch` same-window chunks). `cmask` and `groups` are this
     package's only (the reference has no such fields), derived from val
     and meta by `with_dense_derived` for the H100 dense kernel."""
-    val: Any       # (nchunks, 16, 16, T) f32 or f64
+    val: Any       # (nchunks, 16, 16, T) f32, f64 or bf16 bits
     meta: Any      # (nchunks, DENSE_MROWS, T) int32
     pb: Any        # (nsteps*K,) int32 x panel ids
     cw: Any        # (nsteps,) int32 output window id
@@ -134,7 +163,8 @@ class DenseChunks:
 class BandChunks:
     """Brick class: one chunk per output window, lane = tile-row; val
     holds C j-major (16, T) column slabs per brick."""
-    val: Any       # (nchunks, C, 16, 16, T) f32 or f64: [w, cb, j, i, t]
+    val: Any       # (nchunks, C, 16, 16, T) f32, f64 or bf16 bits:
+    #                [w, cb, j, i, t]
     bloc: Any      # (nchunks, 1, T) int32: panel-slot*256 + col offset
     pb: Any        # (nchunks*K,) int32 panel ids
     cw: Any        # (nchunks,) int32
@@ -149,7 +179,7 @@ class SparseChunks:
     """Packed sparse-entry class: (nchunks, W, T) value slots (slot 0
     reserved zero, entries row-sorted), 4-bit columns and row pointers
     packed into the meta rows (see sparse_meta_rows)."""
-    val: Any       # (nchunks, W, T) f32
+    val: Any       # (nchunks, W, T) f32 or bf16 bits
     meta: Any      # (nchunks, sparse_meta_rows(W), T) int32
     pb: Any        # (nsteps*K,) int32
     cw: Any        # (nsteps,) int32
@@ -203,13 +233,15 @@ class LanePlan:
         return max(1, -(-self.m // RW_ROWS))
 
     @property
-    def dtype(self):
-        """The plan's value dtype (float32 or float64): that of x and y."""
-        return self.residual.val.dtype
+    def dtype(self) -> torch.dtype:
+        """The plan's value dtype, torch.float32, float64 or bfloat16
+        (value_dtype), for NumPy arrays and tensors alike. x and y have
+        its acc_dtype."""
+        return value_dtype(self.residual.val)
 
     def bytes_accessed(self) -> int:
-        """Plan bytes one SpMV streams (class payloads + x + y, of the
-        plan's value dtype)."""
+        """Plan bytes one SpMV streams (class payloads, and x and y of
+        the plan's compute dtype, acc_dtype)."""
         def nbytes(a):
             return int(np.prod(a.shape)) * a.dtype.itemsize
         total = 0
@@ -225,7 +257,8 @@ class LanePlan:
                           + nbytes(st.planes))
         total += (nbytes(self.residual.val) + nbytes(self.residual.row)
                   + nbytes(self.residual.col))
-        total += (self.x_padded_len + self.m) * self.dtype.itemsize
+        total += (self.x_padded_len + self.m) * acc_dtype(
+            self.dtype).itemsize
         return total
 
     def summary(self) -> dict:
@@ -295,8 +328,12 @@ def dense_groups(meta: np.ndarray, t_lanes: int) -> np.ndarray:
 
 def dense_column_masks(val: np.ndarray, meta: np.ndarray) -> np.ndarray:
     """(nchunks, T) int32: bit j set where tile (c, t) holds a nonzero in
-    column j (val[c, j, :, t]), 0 on inert lanes (meta[XLOC] < 0)."""
-    nz = (np.asarray(val) != 0).any(axis=2)               # (c, j, t)
+    column j (val[c, j, :, t], floats or bf16 bits), 0 on inert lanes
+    (meta[XLOC] < 0)."""
+    val = np.asarray(val)
+    if value_dtype(val) == torch.bfloat16:
+        val = val & 0x7FFF                                # -0.0 is zero
+    nz = (val != 0).any(axis=2)                           # (c, j, t)
     bits = (nz.astype(np.int32) << np.arange(16, dtype=np.int32)[
         None, :, None]).sum(axis=1)
     act = np.asarray(meta)[:, META_XLOC] >= 0
@@ -311,6 +348,18 @@ def with_dense_derived(d: Optional[DenseChunks]) -> Optional[DenseChunks]:
     return dataclasses.replace(
         d, cmask=dense_column_masks(d.val, d.meta),
         groups=dense_groups(d.meta, d.t_lanes))
+
+
+def as_bf16(plan: LanePlan) -> LanePlan:
+    """The bf16 plan of f32 `plan` (NumPy arrays): every value array as
+    bf16_bits, the dense class's derived arrays taken anew from its bf16
+    values."""
+    return dataclasses.replace(
+        plan, dense=with_dense_derived(bf16_values(plan.dense)),
+        band=bf16_values(plan.band),
+        sparses=tuple(map(bf16_values, plan.sparses)),
+        residual=bf16_values(plan.residual),
+        stream=bf16_values(plan.stream), stream2=bf16_values(plan.stream2))
 
 
 def _expand(ptr):
@@ -829,15 +878,19 @@ def _coo_absorb_cost_ns(ctr: np.ndarray, ctc: np.ndarray,
 
 def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
     """Compile a TileMatrix into the lane-major plan (NumPy arrays) for
-    `compute_dtype` float32 or float64 (see the module doc for the f64
-    routing). COO tiles go to the entry-level stream engine by entry
-    count, per-tile density and the absorb-vs-stream cost estimate."""
+    `compute_dtype` float32, float64 or BF16 (see the module doc for the
+    f64 routing and the bf16 values). COO tiles go to the entry-level
+    stream engine by entry count, per-tile density and the
+    absorb-vs-stream cost estimate."""
+    if is_bf16(compute_dtype):
+        return as_bf16(build_lane_plan(tm))
     b = tm.config.tile_size
     if b != 16:
         raise NotImplementedError("the lane plan requires tile_size=16")
     cdt = np.dtype(compute_dtype)
     if cdt not in (np.dtype(np.float32), np.dtype(np.float64)):
-        raise ValueError(f"compute_dtype {cdt}: float32 or float64")
+        raise ValueError(f"compute_dtype {cdt}: float32, float64 or "
+                         f"{BF16}")
     f64 = cdt == np.dtype(np.float64)
 
     trow, tcol, counts, er, ec, ev = _all_entries(tm)

@@ -3,10 +3,13 @@ they assemble.
 
 Each `*_reference(cls, x, y)` adds its class's contribution into the
 output `y` in place and returns it. `x` is the padded x (see
-`pad_x`); the class's plan arrays are tensors on x's device. The
-precision is the class's `val` dtype, that of x and y: float32 for an
-f32 plan, float64 for an f64 one (band, dense and stream classes; the
-plain versions of the f64 kernels). For SpMV
+`pad_x`); the class's plan arrays are tensors on x's device. x, y and
+the sums have the plan's compute dtype (`lane_plan.acc_dtype`): float32 for an f32
+plan, float64 for an f64 one (band, dense and stream classes; the plain
+versions of the f64 kernels) and float32 for a bf16 one, whose bf16
+values are widened to float32 as the reference's kernels widen them
+(tilespmv_tpu/ops/pallas/kernels.py:357, :430, :537, :1937; each product
+of a bf16 value and a bf16 x is exact in float32). For SpMV
 x is flat (rows,) and y (ylen,); for SpMM over k right-hand sides x is
 (rows, k) and y (ylen, k), row-major, and every index below reads
 x[i] as x[i, r] and y[i] as y[i, r] for each RHS r. They use the same
@@ -41,8 +44,10 @@ import torch
 
 from ..plan import ResidualEngine
 from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, BandChunks,
-                        DenseChunks, LanePlan, SparseChunks, map_arrays)
-from .stream_plan import LANES, RW_ROWS, SPAN_ROWS, SUBS, StreamChunks
+                        DenseChunks, LanePlan, SparseChunks, acc_dtype,
+                        map_arrays, value_dtype)
+from .stream_plan import (BF16_BITS, LANES, RW_ROWS, SPAN_ROWS, SUBS,
+                          StreamChunks)
 
 _B = 16
 # slab-RHS pairs per pass of stream_reference (bounds its gather
@@ -95,7 +100,7 @@ def band_reference(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     T = ROW_WINDOW
     pb = bd.pb.view(nch, bd.k_panels).long()
     bloc = bd.bloc.view(nch, T).long()
-    acc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=bd.val.dtype,
+    acc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=x.dtype,
                       device=y.device)
     for cb in range(C):
         xq = _x_blocks(pb, bloc + cb, x)                 # (nch, 16j, T)
@@ -211,8 +216,7 @@ def sparse_rows_reference(s, x: torch.Tensor,
     cell = ((torch.arange(nch, device=dev)[:, None, None] * _B
              + row.transpose(1, 2)) * T + torch.arange(T, device=dev))
     cols = base + _sparse_cols(s, slot).long()
-    yc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=s.val.dtype,
-                     device=dev)
+    yc = torch.zeros((nch, _B, T) + x.shape[1:], dtype=x.dtype, device=dev)
     yc.view((-1,) + x.shape[1:]).index_add_(
         0, cell[keep], _rhs(s.val[keep], x) * x[cols[keep]])
     return _route(yc, s.cw.long()[step], s.meta[:, 1].long(), xloc >= 0, y)
@@ -361,9 +365,10 @@ def class_coo(cls) -> tuple:
     any device, or NumPy) as NumPy (row, col, val): global y row, global
     x column and value, by the plain versions' index arithmetic (stream
     classes by `erow`). Padding (zero values, masked lanes) is left out,
-    so a plan's classes together list each entry of its matrix once."""
+    so a plan's classes together list each entry of its matrix once.
+    bf16 values come as float32 (NumPy has no bfloat16; exact)."""
     cls = dataclasses.replace(cls, **{
-        f.name: torch.as_tensor(getattr(cls, f.name)).cpu()
+        f.name: plan_tensor(getattr(cls, f.name)).cpu()
         for f in dataclasses.fields(cls)
         if f.type == "Any" and getattr(cls, f.name) is not None})
     if isinstance(cls, BandChunks):
@@ -380,20 +385,46 @@ def class_coo(cls) -> tuple:
         raise TypeError(f"class_coo: not a plan class: {type(cls)}")
     nz = val != 0
     return (row[nz].numpy().astype(np.int64),
-            col[nz].numpy().astype(np.int64), val[nz].numpy())
+            col[nz].numpy().astype(np.int64),
+            val[nz].to(acc_dtype(val.dtype)).numpy())
+
+
+def plan_tensor(a) -> torch.Tensor:
+    """A plan array as a tensor: NumPy bf16 values (lane_plan.value_dtype:
+    bits or 2-byte void items) viewed as torch.bfloat16, other NumPy arrays through torch.from_numpy (sharing
+    their memory), tensors as they are."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if value_dtype(a) == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def plan_array(t: torch.Tensor) -> np.ndarray:
+    """A plan tensor as a NumPy array on the host: plan_tensor's inverse
+    (torch.bfloat16 as BF16_BITS)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
 
 
 def to_torch(plan: LanePlan, device=None) -> LanePlan:
-    """`plan` (NumPy arrays) with its arrays as tensors on `device`."""
-    return map_arrays(plan, lambda _, a: torch.tensor(a, device=device))
+    """`plan` (NumPy arrays) with its arrays copied into tensors on
+    `device` (plan_tensor)."""
+    return map_arrays(plan, lambda _, a: plan_tensor(a).to(device,
+                                                            copy=True))
 
 
 def pad_x(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """x, (n,) or (n, k), in the plan's dtype, zero-padded along its rows
-    to cover every class's x reads: the panel classes' x_padded_len and
-    the stream classes' x_padded_len128."""
+    """x, (n,) or (n, k), in the plan's compute dtype (acc_dtype; a bf16
+    x widens exactly to float32), zero-padded along its rows to cover
+    every class's x reads: the panel classes' x_padded_len and the stream
+    classes' x_padded_len128."""
     xp = torch.zeros((max(plan.x_padded_len, plan.x_padded_len128),)
-                     + x.shape[1:], dtype=plan.dtype, device=x.device)
+                     + x.shape[1:], dtype=acc_dtype(plan.dtype),
+                     device=x.device)
     xp[: plan.n] = x
     return xp
 
@@ -407,12 +438,13 @@ def _checked_x(plan: LanePlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """One zero y, (ylen,) or (ylen, k), spanning the panel classes' and
-    the stream classes' windows: every class adds into it."""
+    """One zero y, (ylen,) or (ylen, k), in the plan's compute dtype,
+    spanning the panel classes' and the stream classes' windows: every
+    class adds into it."""
     ylen = plan.y_padded_len
     if plan.stream is not None:
         ylen = max(ylen, plan.n_stream_windows * RW_ROWS)
-    return torch.zeros((ylen,) + x.shape[1:], dtype=plan.dtype,
+    return torch.zeros((ylen,) + x.shape[1:], dtype=acc_dtype(plan.dtype),
                        device=x.device)
 
 
@@ -426,10 +458,16 @@ def _panel_classes(plan: LanePlan, xp, y, band, dense, sparse) -> None:
 
 
 def residual_add(plan: LanePlan, x, y) -> None:
-    """Add the residual entries' products into y (x unpadded)."""
+    """Add the residual entries' products into y (x unpadded, in the
+    plan's value dtype). Values and x are widened to y's compute dtype
+    first, so a bf16 product is exact in float32, as the reference's
+    `plan.residual.val * x[col]` (tilespmv_tpu/ops/pallas/kernels.py:
+    2037-2039, :1137-1139) runs once jitted: XLA keeps that bf16 product
+    in float32."""
     r = plan.residual
     if r.val.shape[0]:
-        y.index_add_(0, r.row.long(), _rhs(r.val, x) * x[r.col.long()])
+        y.index_add_(0, r.row.long(), _rhs(r.val.to(y.dtype), x)
+                     * x[r.col.long()].to(y.dtype))
 
 
 def _assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
@@ -441,13 +479,15 @@ def _assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
         if st is not None:
             stream(st, xp, y)
     residual_add(plan, x, y)
-    return y[: plan.m]
+    return y[: plan.m].to(plan.dtype)
 
 
 def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
              stream) -> torch.Tensor:
     """y = A @ x with the given class functions, in the reference's
-    class order (dense, band, W-classes, stream, stream2, residual)."""
+    class order (dense, band, W-classes, stream, stream2, residual): x
+    cast to the plan's value dtype, the classes summed in its compute
+    dtype and y cast to the value dtype once, at the end."""
     return _assemble(plan, _checked_x(plan, x, 1), band, dense, sparse,
                      stream)
 

@@ -33,6 +33,12 @@ reference's segmented-scan planes (`segmask`) feed only its compiled
 double-f32 scan and are not built; the round planes are the same in
 both dtypes.
 
+bf16 plans (lane_plan.as_bf16) are the f32 plan with each value
+rounded to bfloat16 as the reference rounds it (f64 -> f32 -> bf16, each
+to nearest even; `bf16_bits`). NumPy has no bfloat16, so their value
+arrays hold the bit patterns as uint16 (BF16_BITS); the torch side views
+them as torch.bfloat16 (reference.plan_tensor).
+
 Deferred (tilespmv_tpu keeps them): the offs/roll scatter encodings.
 """
 from __future__ import annotations
@@ -52,6 +58,35 @@ SPAN_ROWS = 64     # default x2d128 rows per slab superspan (8 windows)
 SPAN_CHOICES = (64, 128, 256, 512)
 MAX_SPAN_ROWS = SPAN_CHOICES[-1]  # x padding slack past the end
 EROW_PAD = -1      # StreamChunks.erow of a slot that holds no entry
+# a bf16 plan's compute dtype, and the NumPy dtype of its values' bits
+BF16 = "bfloat16"
+BF16_BITS = np.dtype(np.uint16)
+
+
+def is_bf16(dt) -> bool:
+    """True for bfloat16 by any of its names: BF16, the reference's NumPy
+    bfloat16, torch.bfloat16."""
+    return str(dt).removeprefix("torch.") == BF16
+
+
+def bf16_bits(v) -> np.ndarray:
+    """The bfloat16 bit patterns (BF16_BITS) of `v` rounded as the
+    reference's `astype(jnp.bfloat16)` rounds float64: to float32, then
+    to bfloat16, each to nearest even; NaN becomes the quiet NaN of its
+    sign."""
+    f = np.asarray(v).astype(np.float32)
+    u = f.view(np.uint32).astype(np.uint64)
+    r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+    r = np.where(np.isnan(f), (u >> 16) & 0x8000 | 0x7FC0, r)
+    return r.astype(BF16_BITS)
+
+
+def bf16_values(cls):
+    """Plan class `cls` (NumPy arrays, f32 values) with its `val` as
+    bf16_bits; None for None."""
+    if cls is None:
+        return None
+    return dataclasses.replace(cls, val=bf16_bits(cls.val))
 
 
 def f64_plan_value(v: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Public SpMV / SpMM operator.
 
 `TileSpMV` converts a matrix (CSR or an already-converted TileMatrix)
-into the lane-major execution plan of its `dtype` (float32, or float64
-as the reference's f64 plan with native-FP64 values) and computes
+into the lane-major execution plan of its `dtype` (float32; float64 as
+the reference's f64 plan with native-FP64 values; or bfloat16, the f32
+plan with bf16 values, summed in float32 as the reference sums them) and
+computes
 y = A @ x (`forward`) and Y = A @ X for X (n, k) (`matmat`; `op @ x`
 takes either); `op.T` is the transposed operator (`rmatvec`), and
 `TileSpMV.from_plan` takes an already-built plan (core/serialize.py's
@@ -18,7 +20,6 @@ from __future__ import annotations
 
 from typing import Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -28,7 +29,7 @@ from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
 from .cuda.kernels import SPMM_K, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
-from .cuda.reference import spmm_reference, spmv_reference
+from .cuda.reference import plan_tensor, spmm_reference, spmv_reference
 
 
 def _run(plan: LanePlan, x: torch.Tensor, cuda_fn, cpu_fn) -> torch.Tensor:
@@ -47,24 +48,17 @@ def spmv(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
 
 def spmm(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for X (n, k) over a plan whose tensors lie on X's
-    device: the fused SpMM kernels for k in SPMM_K (2..16) on an f32
-    plan, one SpMV per column otherwise and on an f64 one, as the
+    device: the fused SpMM kernels for k in SPMM_K (2..16) on an f32 or
+    bf16 plan, one SpMV per column otherwise and on an f64 one, as the
     reference dispatches (tilespmv_tpu/ops/spmv.py:69-89)."""
-    if x.shape[1] not in SPMM_K or plan.dtype != torch.float32:
+    if x.shape[1] not in SPMM_K or plan.dtype == torch.float64:
         return torch.stack([spmv(plan, x[:, r])
                             for r in range(x.shape[1])], dim=1)
     return _run(plan, x, spmm_cuda, spmm_reference)
 
 
-def _torch_dtype(dt) -> torch.dtype:
-    """A plan's value dtype (NumPy or torch) as a torch dtype."""
-    if isinstance(dt, torch.dtype):
-        return dt
-    return torch.from_numpy(np.empty(0, dt)).dtype
-
-
 class TileSpMV(nn.Module):
-    """Tiled f32 or f64 SpMV / SpMM operator.
+    """Tiled f32, f64 or bf16 SpMV / SpMM operator.
 
     >>> op = TileSpMV(csr)                  # convert + plan + upload
     >>> y = op(x)                           # y = A @ x on op's device
@@ -72,11 +66,12 @@ class TileSpMV(nn.Module):
     >>> y, Y = op @ x, op @ X
     >>> z = op.T(y)                         # A^T @ y (op.rmatvec(y))
     >>> op64 = TileSpMV(csr, dtype=torch.float64)
+    >>> op16 = TileSpMV(csr, dtype=torch.bfloat16)  # bf16 values and y
     >>> op_cpu = TileSpMV(csr, device="cpu")  # the plain versions
     >>> op2 = TileSpMV.from_plan(load_lane_plan(path))
     """
 
-    DTYPES = (torch.float32, torch.float64)
+    DTYPES = (torch.float32, torch.float64, torch.bfloat16)
 
     def __init__(self, a: Union[CSRMatrix, TileMatrix],
                  device: Union[str, torch.device, None] = None,
@@ -86,10 +81,12 @@ class TileSpMV(nn.Module):
         from tile_create with any config of tile size 16 (`config` is
         then not used). `device`: where the plan lives and the SpMV
         runs; None is the card ("cuda"), and raises RuntimeError where
-        there is none. `dtype`: the compute dtype, torch.float32 or
-        torch.float64 (the reference's `compute_dtype`); x is cast to it
-        and y has it. A tile size other than 16 raises
-        NotImplementedError."""
+        there is none. `dtype`: the compute dtype, torch.float32,
+        torch.float64 or torch.bfloat16 (the reference's
+        `compute_dtype`); x is cast to it and y has it (bf16: the values
+        and x are bf16, every product and sum is taken in float32, and
+        y is rounded to bf16 once, as in the reference). A tile size
+        other than 16 raises NotImplementedError."""
         super().__init__()
         device = self._setup(device, dtype)
         # kept for .T: the transpose is planned from the source CSR (a
@@ -98,8 +95,8 @@ class TileSpMV(nn.Module):
         self._config = config
         if not isinstance(a, TileMatrix):
             a = tile_create(a, config)
-        self._register_plan(build_lane_plan(a, compute_dtype=np.dtype(
-            str(dtype).replace("torch.", ""))), device)
+        self._register_plan(build_lane_plan(
+            a, compute_dtype=str(dtype).removeprefix("torch.")), device)
 
     @classmethod
     def from_plan(cls, plan: LanePlan,
@@ -114,7 +111,7 @@ class TileSpMV(nn.Module):
         op = cls.__new__(cls)
         nn.Module.__init__(op)
         device = op._setup(device, dtype)
-        if _torch_dtype(plan.dtype) != dtype:
+        if plan.dtype != dtype:
             raise ValueError(f"the plan holds {plan.dtype} values, not "
                              f"{dtype}")
         op._source_csr = op._config = None
@@ -148,9 +145,7 @@ class TileSpMV(nn.Module):
         self._bytes_accessed = plan.bytes_accessed()
 
         def register(name, arr):
-            self.register_buffer(name, arr if isinstance(arr, torch.Tensor)
-                                 else torch.from_numpy(
-                                     np.ascontiguousarray(arr)))
+            self.register_buffer(name, plan_tensor(arr))
         map_arrays(plan, register)
         # the plan with each array replaced by its buffer's name
         self._skeleton: LanePlan = map_arrays(plan, lambda n, _: n)

@@ -23,7 +23,7 @@ import torch
 
 from ..bench import roofline
 from ..ops.cuda import kernels, reference
-from ..ops.cuda.lane_plan import BandChunks
+from ..ops.cuda.lane_plan import BandChunks, acc_dtype, value_dtype
 
 
 def _timed(fn, *args, reps: int = 3, k1: int = 25, k2: int = 425) -> float:
@@ -96,23 +96,26 @@ def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
 
 
 # H100 SXM peaks at its 700 W limit (bench/roofline.py's table): HBM3
-# bytes/s, and FLOP/s outside the tensor cores by value size (FP32, FP64)
+# bytes/s, and FLOP/s by value size (BF16 on the tensor cores; FP32 and
+# FP64 outside them)
 HBM_BYTES_PER_S = roofline.HBM_GBPS["h100_sxm"] * 1e9
 PEAK_FLOPS = {vb: g * 1e9
               for vb, g in roofline.PEAK_GFLOPS["h100_sxm"].items()}
 
 
 def csr_bound(nnz: int, rows: int, cols: int, vbytes: int,
-              k: int = 1) -> dict:
+              k: int = 1, xbytes: int = 0) -> dict:
     """Least time of Y = A @ X over k right-hand sides for A in CSR with
     `nnz` entries over `rows` distinct rows and `cols` distinct columns,
-    values of `vbytes` bytes: each byte read or written once, bytes =
-    nnz*(vbytes + 4) + 4*(rows + 1) + vbytes*(cols + rows)*k (values and
+    values of `vbytes` bytes, X and Y of `xbytes` (0: vbytes), which also
+    picks the peak FLOP/s: each byte read or written once, bytes =
+    nnz*(vbytes + 4) + 4*(rows + 1) + xbytes*(cols + rows)*k (values and
     int32 columns, row pointer, x and y), flops = 2*nnz*k; roofline's
     dict."""
+    xbytes = xbytes or vbytes
     return roofline(
-        nnz * (vbytes + 4) + 4 * (rows + 1) + vbytes * (cols + rows) * k,
-        2 * nnz * k, vbytes)
+        nnz * (vbytes + 4) + 4 * (rows + 1) + xbytes * (cols + rows) * k,
+        2 * nnz * k, xbytes)
 
 
 def roofline(nbytes: float, flops: float, vbytes: int) -> dict:
@@ -126,34 +129,40 @@ def roofline(nbytes: float, flops: float, vbytes: int) -> dict:
 
 
 def band_bound(nnz: int, rows: int, cols: int, vbytes: int,
-               index_bytes: int, k: int = 1) -> dict:
+               index_bytes: int, k: int = 1, xbytes: int = 0) -> dict:
     """Least time of Y = A @ X over k right-hand sides for a banded A:
     its columns follow from each tile row's first block column, so no
     index per entry is read. bytes = nnz*vbytes + index_bytes (the
-    block columns and panel ids) + vbytes*(cols + rows)*k, flops =
-    2*nnz*k; roofline's dict."""
-    return roofline(nnz * vbytes + index_bytes + vbytes * (cols + rows) * k,
-                    2 * nnz * k, vbytes)
+    block columns and panel ids) + xbytes*(cols + rows)*k (xbytes as in
+    csr_bound), flops = 2*nnz*k; roofline's dict."""
+    xbytes = xbytes or vbytes
+    return roofline(nnz * vbytes + index_bytes + xbytes * (cols + rows) * k,
+                    2 * nnz * k, xbytes)
 
 
 def class_bound(classes, k: int = 1) -> dict:
     """The bound summed over plan classes of one value dtype
     (reference.class_coo's nonzeros; each class its own launch): a band
     class by band_bound over its bloc, pb and cw, every other class by
-    csr_bound as its own CSR."""
-    parts, vbytes = [], 4
+    csr_bound as its own CSR: values at the bytes of the class's value
+    dtype (2 for bf16), x, y and the FLOP/s peak at those of its compute
+    dtype (lane_plan.acc_dtype: float32 for bf16, which is what the
+    kernels read, write and multiply in)."""
+    parts, xbytes = [], 4
     for cls in classes:
         row, col, val = reference.class_coo(cls)
-        vbytes = val.dtype.itemsize
-        shape = (val.size, np.unique(row).size, np.unique(col).size, vbytes)
+        vdt = value_dtype(cls.val)
+        xbytes = acc_dtype(vdt).itemsize
+        shape = (val.size, np.unique(row).size, np.unique(col).size,
+                 vdt.itemsize)
         if isinstance(cls, BandChunks):
             index = _nbytes(*(torch.as_tensor(a)
                               for a in (cls.bloc, cls.pb, cls.cw)))
-            parts.append(band_bound(*shape, index, k))
+            parts.append(band_bound(*shape, index, k, xbytes))
         else:
-            parts.append(csr_bound(*shape, k))
+            parts.append(csr_bound(*shape, k, xbytes))
     return roofline(sum(p["bytes"] for p in parts),
-                    sum(p["flops"] for p in parts), vbytes)
+                    sum(p["flops"] for p in parts), xbytes)
 
 
 def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
@@ -223,7 +232,8 @@ def _nbytes(*tensors) -> int:
 
 
 def profile_engines(op, x=None) -> dict[str, dict]:
-    """Per-class timing breakdown of a TileSpMV operator (f32 or f64).
+    """Per-class timing breakdown of a TileSpMV operator (f32, f64 or
+    bf16).
 
     Returns {class: {"us", "bytes", "gbps", ...}} with the classes
     "dense", "band", "sparse_w{W}", "stream", "stream2" and "residual"
