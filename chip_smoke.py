@@ -133,10 +133,41 @@ Phases, each fatal on failure:
    under `trace_context` and its busy share, and matmat at k = 8 against
    8 SpMV calls; and the CLI with `--dtype bf16` on banded_large (PASS,
    band_bf16 launched).
+12. xla engines and forced lane plans — (a) the trio through
+   `TileSpMV(csr, device="cuda", backend="xla")` at tile size 16 and
+   through `TileConfig(tile_size=8)`, which picks the xla engines
+   itself (backend, plan MB and the seconds of conversion and planning
+   printed); with the launch counters reset just before, one `op(x)` per
+   matrix and tile size must launch no class kernel and pass phase 3's
+   gates; f64 on mixed_large at tile size 8 passes phase 8's 1e-12 gate
+   (bench and uniform x), bf16 on banded_large max |y - golden| <=
+   2^-6 |A|·|x| + 1e-3 element by element (the rows over
+   tests/test_plan_spmv.py's 1% + 1e-3 printed: the reference's own
+   bf16 y misses that gate at this size, ROADMAP.md C), matmat at
+   k = 8 on mixed_large phase 7's gates; per matrix the xla path's ms
+   (CUDA-graph replay) and eager_ms (bench/harness.py::benchmark_op)
+   beside the lane plan's and one cuSPARSE `torch.mv` on the whole
+   matrix; the CLI with `--tile-size 8` on mixed_large and `--backend
+   xla` on banded_large (PASS). (b) the trio planned with the reference
+   distributed layer's options (force_t=128, use_stream = COO entries >=
+   STREAM_MIN_ENTRIES, stream_s_batch=8, stream_span_rows=64) in f32,
+   and mixed_large in f64 and bf16, plus use_stream=False on
+   powerlaw_large and use_stream=True on mixed_large and banded_large
+   (which has no COO entry: an all-inert stream class), each through
+   `TileSpMV.from_plan(plan, device="cuda")`: with the counters reset
+   just before, op(x) and matmat at k = 8 must launch every class kernel
+   the plan holds and pass the golden gates of their dtype; then each
+   class kernel against its plain version on the card within KERNEL_TOL
+   (f64: KERNEL_TOL_F64), its classes' forced layout and its time
+   printed beside its phase 4, 7, 8 or 11 time on the automatic plan.
+   The phase's seconds are printed.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
-ms, plain_ms, bound_ms and bound_by, library_ms, share of bound), then
+ms, plain_ms, bound_ms and bound_by, library_ms, share of bound; a
+"forced" list per kernel: plan, error, ms and the automatic plan's ms)
+with an "xla" entry per matrix (ms and eager_ms at tile sizes 16 and 8,
+the lane plan's, cuSPARSE's, conversion and planning seconds), then
 the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
@@ -225,6 +256,14 @@ MB_OPS.update({("microbench_scatter", "rounds"): 8 * 13 * 1024 * 2,
 K_MM = 8
 # op(x) calls per matrix and dtype in phase 9's trace
 TRACE_CALLS = 20
+# phase 12's tile size below 16, where TileSpMV picks the xla engines
+XLA_TILE = 8
+# the xla path's bf16 y against the float64 golden: its engines sum in
+# bf16 as the reference's do, a few roundings of 2^-8 a row, so
+# |y - golden| <= 2^-6 |A|·|x| + 1e-3 (tests/test_torch_bf16_slice.py's
+# bound; the reference test's 1% gate fails for the reference's own y at
+# this size, ROADMAP.md C)
+XLA_BF16_RTOL, XLA_BF16_ATOL = 2.0 ** -6, 1e-3
 MTX = "tests/fixtures/bcsstk_style_sym.mtx"
 
 
@@ -1205,6 +1244,282 @@ def bf16_phase(dev, card, csrs, ops32, f32_results) -> list:
     return results
 
 
+def xla_phase(dev, card, csrs, ops) -> dict:
+    """Phase 12 (a), the xla engines (see the module doc); `ops` are
+    phase 2's lane-plan operators. Returns the per-matrix entry of the
+    JSON line: the xla path's ms (graph replay) and eager_ms at tile
+    sizes 16 and XLA_TILE, the lane plan's beside them, cuSPARSE's on
+    the whole matrix, and the seconds of conversion and planning."""
+    import torch
+    from tilespmv_tpu_torch import TileConfig, TileSpMV
+    from tilespmv_tpu_torch.bench.harness import benchmark_op
+    from tilespmv_tpu_torch.core.convert import tile_create
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    xops, tms, out = {}, {}, {n: {} for n in FLAGSHIP}
+    for n in FLAGSHIP:
+        for b, backend in ((16, "xla"), (XLA_TILE, "auto")):
+            t0 = time.perf_counter()
+            tms[n, b] = tile_create(csrs[n], TileConfig(tile_size=b))
+            t1 = time.perf_counter()
+            op = xops[n, b] = TileSpMV(tms[n, b], device=dev,
+                                       backend=backend)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if op.backend != "xla":
+                raise AssertionError(f"{n} tile {b} backend={backend}: "
+                                     f"backend {op.backend}")
+            out[n][f"convert_s_{b}"] = t1 - t0
+            out[n][f"plan_s_{b}"] = t2 - t1
+            out[n][f"plan_mb_{b}"] = op.summary["plan_mbytes"]
+            log(f"xla plan {n} tile {b} (backend={backend}): backend "
+                f"{op.backend}, convert {t1 - t0:.2f} s, plan+upload "
+                f"{t2 - t1:.2f} s, {op.summary['plan_mbytes']} MB, engines "
+                f"{json.dumps(op.summary['engines'])}")
+
+    # main path: one op(x) per matrix and tile size, counters reset just
+    # before; no class kernel may launch
+    xs = {n: bench_x(csrs[n].n) for n in FLAGSHIP}
+    xd = {n: torch.from_numpy(xs[n]).to(dev) for n in FLAGSHIP}
+    kernels.reset_launch_counts()
+    ys = {k: op(xd[k[0]]) for k, op in xops.items()}
+    torch.cuda.synchronize()
+    cnt = kernels.launch_counts()
+    if any(cnt.values()):
+        raise AssertionError(f"the xla path launched class kernels: {cnt}")
+    for (n, b), y in ys.items():
+        if y.device.type != "cuda":
+            raise AssertionError(f"xla {n} tile {b}: y on {y.device}")
+        ref = golden(csrs[n], xs[n])
+        y = y.cpu().numpy()
+        gate(f"xla {n} tile {b}", y, ref)
+        log(f"gate xla {n} tile {b}: ok, max |y - golden| "
+            f"{float(np.abs(y - ref).max()):.3e}, no class kernel launched")
+
+    # f64 on mixed_large, bf16 on banded_large, matmat at K_MM
+    n = "mixed_large"
+    op64 = TileSpMV(tms[n, XLA_TILE], device=dev, dtype=torch.float64)
+    for xn, x in (("bench", xs[n].astype(np.float64)),
+                  ("uniform", np.random.default_rng(1).uniform(
+                      -1, 1, csrs[n].n))):
+        err = gate64(f"xla f64 {n} tile {XLA_TILE} ({xn} x)", csrs[n],
+                     op64(x).cpu().numpy(), x)
+        log(f"gate xla f64 {n} tile {XLA_TILE}: ok, max |y - golden| / "
+            f"(1 + |A||x|) {err:.3e} ({xn} x)")
+    xm = bench_xs(csrs[n].n, K_MM)
+    gate_mm(f"xla matmat {n} tile {XLA_TILE}", csrs[n], xops[
+        n, XLA_TILE].matmat(torch.from_numpy(xm).to(dev)).cpu().numpy(), xm)
+    log(f"gate xla matmat {n} tile {XLA_TILE} (k {K_MM}): ok")
+    n = "banded_large"
+    y16 = TileSpMV(tms[n, XLA_TILE], device=dev, dtype=torch.bfloat16)(
+        xd[n])
+    ref = golden(csrs[n], xs[n])
+    rows = np.repeat(np.arange(csrs[n].m), np.diff(csrs[n].indptr))
+    mag = np.bincount(rows, weights=np.abs(
+        csrs[n].data * xs[n][csrs[n].indices]), minlength=csrs[n].m)
+    err = np.abs(y16.float().cpu().numpy().astype(np.float64) - ref)
+    if y16.dtype != torch.bfloat16 or not np.all(
+            err <= XLA_BF16_RTOL * mag + XLA_BF16_ATOL):
+        raise AssertionError(f"xla bf16 {n}: y {y16.dtype}, worst "
+                             f"{float(err.max()):.3e}")
+    over = int(np.sum(err > 0.01 * np.abs(ref) + 1e-3))
+    log(f"gate xla bf16 {n} tile {XLA_TILE}: ok, max |y - golden| "
+        f"{float(err.max()):.3e}, max / (|A||x|) "
+        f"{float(np.max(err / np.maximum(mag, 1e-30))):.3e} (bound "
+        f"{XLA_BF16_RTOL} |A||x| + {XLA_BF16_ATOL}); rows over the "
+        f"reference test's 1% + 1e-3 gate: {over} (not gated: the "
+        f"reference's bf16 sums miss it too, ROADMAP.md C)")
+    cnt = kernels.launch_counts()
+    if any(cnt.values()):
+        raise AssertionError(f"the xla path launched class kernels: {cnt}")
+
+    # times: the xla path beside the lane plan and cuSPARSE
+    for n in FLAGSHIP:
+        csr = csrs[n]
+        mat = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int32)).to(dev),
+            torch.from_numpy(csr.indices.astype(np.int32)).to(dev),
+            torch.from_numpy(csr.data).to(dev, torch.float32),
+            size=(csr.m, csr.n))
+        lib_ms = out[n]["library_ms"] = library_ms(
+            "cusparse", lambda: torch.mv(mat, xd[n]))
+        lane = benchmark_op(ops[n], x=xs[n], name=n, warmup=2, timed_reps=5,
+                            iters_per_rep=20)
+        out[n].update(lane_ms=lane.ms, lane_eager_ms=lane.eager_ms)
+        for b in (16, XLA_TILE):
+            res = benchmark_op(xops[n, b], x=xs[n], name=n, warmup=2,
+                               timed_reps=5, iters_per_rep=20)
+            out[n][f"ms_{b}"], out[n][f"eager_ms_{b}"] = res.ms, res.eager_ms
+            log(f"xla {n} tile {b}: {res.ms:.4f} ms (graph replay), eager "
+                f"{res.eager_ms:.4f} ms, spread {res.spread:.1%}; lane plan"
+                f" {lane.ms:.4f} ms, eager {lane.eager_ms:.4f} ms; cuSPARSE"
+                f" on the whole matrix {lib_ms:.4f} ms; xla / lane "
+                f"{res.ms / lane.ms:.2f} [{card}]")
+
+    # the command-line tool
+    iters = ["--csv", "", "--iters", "20", "--reps", "3"]
+    for args in (["mixed_large", "--tile-size", str(XLA_TILE)],
+                 ["banded_large", "--backend", "xla"]):
+        text = run_cli(card, args + iters)
+        if "PASS!" not in text or "backend=xla" not in text:
+            raise AssertionError(f"cli {args}: no PASS! / backend=xla")
+    return out
+
+
+def distributed_options(tm) -> dict:
+    """The lane-plan options the reference's distributed layer plans a
+    shard with (tilespmv_tpu/parallel/distributed.py:483-498)."""
+    from tilespmv_tpu_torch.ops.cuda.lane_plan import STREAM_MIN_ENTRIES
+    coo = int(tm.coo.val.shape[0]) if tm.coo.num_tiles else 0
+    return dict(force_t=128, use_stream=coo >= STREAM_MIN_ENTRIES,
+                stream_s_batch=8, stream_span_rows=64)
+
+
+def class_shape(kind: str, cls) -> str:
+    """The layout numbers of a class that the forcing options pin."""
+    if kind.startswith("stream"):
+        return (f"S {cls.s_batch} span {cls.span_rows} dual {cls.dual} "
+                f"fp {cls.xmap is not None} slabs {cls.nslabs} active "
+                f"steps {int(cls.sactive.sum())}/{cls.nsteps}")
+    if kind.startswith("band"):
+        return f"C {cls.c_cols} chunks {cls.val.shape[0]}"
+    w = f"W {cls.width} " if kind.startswith("sparse") else ""
+    return (f"{w}T {cls.t_lanes} c_batch {cls.c_batch} K {cls.k_panels} "
+            f"chunks {cls.val.shape[0]}")
+
+
+def forced_phase(dev, card, csrs, results) -> None:
+    """Phase 12 (b), lane plans forced by the planner options (see the
+    module doc). Adds a "forced" list to each kernel's entry of
+    `results`: per plan its error against the plain version, its ms and
+    the ms on the automatic plan of the same matrix (phases 4, 7, 8,
+    11) where that was timed."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.core.convert import tile_create
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    from tilespmv_tpu_torch.ops.cuda.lane_plan import build_lane_plan
+    from tilespmv_tpu_torch.utils import profiling
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    sfx = {f32: "", f64: "_f64", bf16: "_bf16"}
+    tms = {n: tile_create(csrs[n]) for n in FLAGSHIP}
+    specs = [(f"{n} f32 distributed", n, f32, distributed_options(tms[n]))
+             for n in FLAGSHIP]
+    specs += [("mixed_large f64 distributed", "mixed_large", f64,
+               distributed_options(tms["mixed_large"])),
+              ("mixed_large bf16 distributed", "mixed_large", bf16,
+               distributed_options(tms["mixed_large"])),
+              ("powerlaw_large f32 use_stream=False", "powerlaw_large", f32,
+               dict(use_stream=False)),
+              ("mixed_large f32 use_stream=True", "mixed_large", f32,
+               dict(use_stream=True)),
+              ("banded_large f32 use_stream=True", "banded_large", f32,
+               dict(use_stream=True))]
+    entry = {r["name"]: r for r in results}
+    mats = {k: (m,) if isinstance(m, str) else m
+            for t in (KERNELS, SPMM_KERNELS, F64_KERNELS, BF16_KERNELS,
+                      BF16_SPMM_KERNELS) for k, (_, _, m) in t.items()}
+    wrap = {"band": kernels.band_spmv, "dense": kernels.dense_spmv,
+            "sparse": kernels.sparse_spmv, "stream": kernels.stream_spmv,
+            "band_spmm": kernels.band_spmm, "dense_spmm": kernels.dense_spmm,
+            "sparse_spmm": kernels.sparse_spmm,
+            "stream2": kernels.stream_spmm}
+    plain = {"band": reference.band_reference,
+             "dense": reference.dense_reference,
+             "sparse": reference.sparse_rows_reference,
+             "stream": reference.stream_rows_reference,
+             "band_spmm": reference.band_spmm_reference,
+             "dense_spmm": reference.dense_spmm_reference,
+             "sparse_spmm": reference.sparse_rows_reference,
+             "stream2": reference.stream_rows_reference}
+    for label, n, dt, opts in specs:
+        csr = csrs[n]
+        t0 = time.perf_counter()
+        plan = build_lane_plan(tms[n], compute_dtype=str(dt).removeprefix(
+            "torch."), **opts)
+        t1 = time.perf_counter()
+        op = TileSpMV.from_plan(plan, device=dev, dtype=dt)
+        torch.cuda.synchronize()
+        dplan = op.device_plan()
+        cl = class_lists(dplan)
+        log(f"forced plan {label} {json.dumps(opts)}: plan {t1 - t0:.1f} s, "
+            f"upload {time.perf_counter() - t1:.1f} s, "
+            f"{op.summary['plan_mbytes']} MB, "
+            f"{json.dumps(op.summary['classes'])}")
+        spmv_k = [k for k in ("band", "dense", "sparse", "stream") if cl[k]]
+        spmm_k = ([k for k in ("band_spmm", "dense_spmm", "sparse_spmm",
+                               "stream2") if cl[k]] if dt != f64 else [])
+        # the main path: op(x) and matmat(X), counters reset just before
+        x = bench_x(csr.n)
+        xm = bench_xs(csr.n, K_MM)
+        if dt == f64:
+            x, xm = x.astype(np.float64), xm.astype(np.float64)
+        kernels.reset_launch_counts()
+        y = op(x)
+        ym = op.matmat(xm)
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        missing = [k + sfx[dt] for k in spmv_k + spmm_k
+                   if not cnt[k + sfx[dt]]]
+        if missing:
+            raise AssertionError(f"forced plan {label}: {missing} never "
+                                 f"launched ({cnt})")
+        if dt == f32:
+            gate(f"forced {label}", y.cpu().numpy(), golden(csr, x))
+            gate_mm(f"forced {label} matmat", csr, ym.cpu().numpy(), xm)
+        elif dt == f64:
+            gate64(f"forced {label}", csr, y.cpu().numpy(), x)
+            ymc = ym.cpu().numpy()
+            for r in range(K_MM):
+                gate64(f"forced {label} matmat column {r}", csr,
+                       ymc[:, r].copy(), xm[:, r].copy())
+        else:
+            gate_bf16(f"forced {label}", y, golden(csr, x))
+            for r in range(K_MM):
+                gate_bf16(f"forced {label} matmat column {r}", ym[:, r],
+                          golden(csr, xm[:, r]))
+        log(f"gate forced {label}: ok (y and matmat k {K_MM}), launches "
+            f"{json.dumps({k: v for k, v in cnt.items() if v})}")
+
+        # each class kernel against its plain version, and its time
+        tol = KERNEL_TOL_F64 if dt == f64 else KERNEL_TOL
+        for kind in spmv_k + spmm_k:
+            k = None if kind in ("band", "dense", "sparse", "stream") \
+                else K_MM
+            rhs = () if k is None else (k,)
+            xr = np.random.default_rng(0).uniform(-1, 1, (csr.n,) + rhs)
+            xp = reference.pad_x(dplan, torch.from_numpy(xr).to(dev, dt))
+            ylen = max(dplan.y_padded_len, dplan.n_stream_windows * 1024)
+            yk = torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
+            yp = torch.zeros_like(yk)
+            for c in cl[kind]:
+                wrap[kind](c, xp, yk)
+                plain[kind](c, xp, yp)
+            torch.cuda.synchronize()
+            err = float((yk - yp).abs().max())
+            bound = tol * max(1.0, float(yp.abs().max()))
+            if not err <= bound:
+                raise AssertionError(f"forced {label} {kind}{sfx[dt]}: max "
+                                     f"|kernel - plain| {err:.3e} > "
+                                     f"{bound:.3e}")
+            ms = profiling.graph_ms(lambda: [wrap[kind](c, xp, yk)
+                                             for c in cl[kind]])
+            name = kind + sfx[dt]
+            e = entry[name]
+            auto = (e.get("by_matrix", {}).get(n, {}).get("ms")
+                    if n in mats[name] else None)
+            if auto is None and mats[name][0] == n:
+                auto = e["ms"]
+            e.setdefault("forced", []).append(dict(
+                plan=label, matrix=n, max_abs_err=err, ms=ms,
+                auto_ms=auto))
+            log(f"kernel {name} on forced {label}"
+                f"{'' if k is None else f' (k {k})'}: "
+                + "; ".join(class_shape(kind, c) for c in cl[kind])
+                + f": max abs err {err:.3e} (bound {bound:.3e}), {ms:.4f} ms"
+                + (f" vs {auto:.4f} ms on the automatic plan"
+                   if auto is not None else "") + f" [{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1317,7 +1632,14 @@ def main() -> int:
     entry_points_phase(dev, card, ys["mixed_large"], repo)
     results += bf16_phase(dev, card, csrs, ops, results)
 
-    log(json.dumps({"kernels": results}))
+    # 12. the xla engines, and lane plans forced by the planner options
+    t_phase = time.perf_counter()
+    xla = xla_phase(dev, card, csrs, ops)
+    forced_phase(dev, card, csrs, results)
+    log(f"phase 12 (xla engines and forced lane plans): "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    log(json.dumps({"kernels": results, "xla": xla}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

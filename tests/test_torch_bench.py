@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from tilespmv_tpu.bench import harness as j_harness
-from tilespmv_tpu_torch import TileSpMV
+from tilespmv_tpu_torch import TileConfig, TileSpMV
 from tilespmv_tpu_torch.bench import harness, roofline
 from tilespmv_tpu_torch.bench.sweep import sweep
 from tilespmv_tpu_torch.io import generate
@@ -76,7 +76,7 @@ def test_benchmark_op_on_the_cpu(dtype):
     op = TileSpMV(csr, device="cpu", dtype=dtype)
     res = harness.benchmark_op(op, name="mixed", warmup=1, timed_reps=3,
                                iters_per_rep=2)
-    assert res.chip == "cpu" and res.backend == "cpu"
+    assert res.chip == "cpu" and res.backend == "pallas"
     assert (res.m, res.n, res.nnz) == (512, 512, csr.nnz)
     assert np.isfinite(res.ms) and res.ms > 0 and res.eager_ms == res.ms
     assert res.gflops == pytest.approx(2 * csr.nnz / res.ms / 1e6)
@@ -89,6 +89,25 @@ def test_benchmark_op_on_the_cpu(dtype):
     assert res.roofline_frac == pytest.approx(res.gbytes_per_s / 50.0)
     # the plan's own byte count includes arrays no kernel reads
     assert nbytes < op.bytes_accessed()
+
+
+@pytest.mark.parametrize("tile_size", [8, 16])
+def test_benchmark_op_xla_on_the_cpu(tile_size):
+    """The xla backend: `backend` is the operator's, and GB/s is taken
+    over the matrix as one CSR (csr_bound over nnz, m and n)."""
+    csr = generate.mixed_structure(512, 512, seed=1)
+    op = TileSpMV(csr, device="cpu", backend="xla",
+                  config=TileConfig(tile_size=tile_size))
+    res = harness.benchmark_op(op, name="mixed", warmup=1, timed_reps=3,
+                               iters_per_rep=2)
+    assert res.chip == "cpu" and res.backend == "xla"
+    assert np.isfinite(res.ms) and res.ms > 0
+    nbytes = profiling.csr_bound(csr.nnz, 512, 512, 4)["bytes"]
+    assert res.gbytes_per_s == pytest.approx(nbytes / res.ms / 1e6)
+    res = sweep(["mixed_small"], device="cpu", csv_path=None,
+                config=TileConfig(tile_size=tile_size), backend="xla",
+                iters_per_rep=2, timed_reps=3, warmup=1)
+    assert res[0].backend == "xla"
 
 
 def test_sweep_on_the_cpu(tmp_path, capsys):

@@ -2,9 +2,10 @@
 (`-d cpu`): the .mtx check (errcount 0, PASS), plan and tile-matrix
 files, the plan cache, the manifest sweep and --resume
 (tests/test_aux.py's), --dtype bf16 on every fixture and a corpus name
-(PASS, as the reference's CLI prints) and its plan files, the options
-the port does not serve yet (exit 2), and no silent CPU fallback
-without a card."""
+(PASS, as the reference's CLI prints) and its plan files, the xla
+backend (--backend xla, --tile-size below 16; --save-plan there exits
+2), the options the port does not serve yet (exit 2), and no silent CPU
+fallback without a card."""
 import glob
 import os
 import shutil
@@ -146,11 +147,51 @@ def test_bf16_plan_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--scaling"], "A.12"),
-    (["--tile-size", "8", FIX], "A.13")])
+    (["--scaling"], "A.12")])
 def test_unported_options_exit_2(args, item, capsys):
     assert cli.main(["-d", "cpu"] + args) == 2
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args", [
+    ["--tile-size", "8", FIX],
+    ["--tile-size", "4", "mixed_small", "--dtype", "f64"],
+    ["--backend", "xla", "mixed_small"],
+    ["--backend", "xla", "mixed_small", "--dtype", "bf16"]])
+def test_xla_backend(args, capsys):
+    """Tile sizes below 16 and --backend xla run the xla engines: the
+    CPU check and the 1% gate pass, --profile is skipped as in the
+    reference (tilespmv_tpu/cli.py:373)."""
+    assert cli.main(["-d", "cpu", "--csv", "", "--profile"] + args
+                    + QUICK) == 0
+    out = capsys.readouterr().out
+    assert "errcount = 0" in out and "Check... PASS!" in out
+    assert "backend=xla" in out and "TileSpMV: " in out
+    assert "per-format-class cost" not in out
+
+
+def test_xla_backend_save_plan_exits_2(tmp_path, capsys):
+    """Plan files hold lane plans: --save-plan on the xla backend exits 2
+    (tilespmv_tpu/cli.py:349-353); the plan cache saves none."""
+    plan = tmp_path / "p.npz"
+    assert cli.main(["-d", "cpu", "--tile-size", "8", FIX, "--csv", "",
+                     "--save-plan", str(plan)] + QUICK) == 2
+    assert "pallas backend" in capsys.readouterr().err
+    assert not plan.exists()
+    d = tmp_path / "mtx"
+    d.mkdir()
+    shutil.copy(FIX, d)
+    cache = tmp_path / "cache"
+    assert cli.main(["-d", "cpu", "--sweep-dir", str(d), "--backend", "xla",
+                     "--plan-cache", str(cache), "--csv", ""] + QUICK) == 0
+    assert "backend=xla" in capsys.readouterr().out
+    assert list(cache.iterdir()) == []
+
+
+def test_pallas_backend_needs_tile_size_16():
+    with pytest.raises(NotImplementedError, match="tile_size=16"):
+        cli.main(["-d", "cpu", "--tile-size", "8", "--backend", "pallas",
+                  FIX, "--csv", ""] + QUICK)
 
 
 def test_no_card_no_fallback(monkeypatch, capsys):

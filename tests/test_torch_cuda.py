@@ -763,7 +763,7 @@ def test_benchmark_op_graph_time_within_eager_time(device):
     before += per_call
     res = harness.benchmark_op(op, name="mixed_medium", warmup=2,
                                timed_reps=5, iters_per_rep=20)
-    assert res.chip == roofline.detect_chip() and res.backend == "cuda"
+    assert res.chip == roofline.detect_chip() and res.backend == "pallas"
     assert np.isfinite(res.ms) and 0 < res.ms <= res.eager_ms
     assert res.gflops == pytest.approx(2 * op.nnz / res.ms / 1e6)
     # a launch is counted where a call is issued: the warm-up call, the
@@ -1031,3 +1031,196 @@ def test_bf16_kernels_on_empty_classes(device):
                                                        device=device))
         torch.cuda.synchronize()
         assert not bool(y.any()) and not bool(y5.any())
+
+
+# the xla engines (plain torch ops) and the forced lane plans
+
+XLA_DTYPES = (torch.float32, torch.float64, BF16)
+
+
+def _magnitude(csr, x: np.ndarray) -> np.ndarray:
+    """|A|·|x| per row (x (n,) or (n, k)), in float64."""
+    rows = np.repeat(np.arange(csr.m), np.diff(csr.indptr))
+    x = np.abs(x.astype(np.float64))
+    out = np.zeros((csr.m,) + x.shape[1:])
+    np.add.at(out, rows, np.abs(csr.data)[:, None] * x[csr.indices]
+              if x.ndim == 2 else np.abs(csr.data) * x[csr.indices])
+    return out
+
+
+@pytest.mark.parametrize("dtype", XLA_DTYPES)
+@pytest.mark.parametrize("b", [4, 8, 12, 16])
+def test_xla_engines_on_the_card(b, dtype, device):
+    """The xla backend on the card against the same plan on the CPU (the
+    same torch engines): no class kernel launches; f32 within 1e-5 *
+    max(1, max|y|), f64 within 1e-12 * (1 + |A|·|x|); bf16, whose
+    engines sum in bf16 (as the reference's do), each device rounding in
+    its own order: both y against the float64 golden on the bf16 x
+    within 2^-6 * (|A|·|x|) + 1e-6 (tests/test_torch_bf16_slice.py's
+    bound); y and matmat at k = 3; then the bench harness captures the
+    xla path in a CUDA graph."""
+    from tilespmv_tpu_torch import TileConfig
+    from tilespmv_tpu_torch.bench import harness
+    csr = generate.mixed_structure(2048, 2048, seed=3)
+    cfg = TileConfig(tile_size=b)
+    op = TileSpMV(csr, device=device, dtype=dtype, config=cfg,
+                  backend="xla")
+    cpu = TileSpMV(csr, device="cpu", dtype=dtype, config=cfg,
+                   backend="xla")
+    assert op.backend == "xla" and op.device.type == "cuda"
+    for k in (None, 3):
+        x = np.random.default_rng(k or 0).uniform(
+            -1, 1, (csr.n,) if k is None else (csr.n, k))
+        xt = torch.from_numpy(x).to(dtype)
+        before = kernels.launch_counts()
+        got = (op(xt.to(device)) if k is None
+               else op.matmat(xt.to(device)))
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == before
+        assert got.device.type == "cuda" and got.dtype == dtype
+        want = (cpu(xt) if k is None else cpu.matmat(xt)).double().numpy()
+        got = got.double().cpu().numpy()
+        err = np.abs(got - want)
+        mag = _magnitude(csr, xt.double().numpy())
+        if dtype == torch.float32:
+            assert err.max() <= 1e-5 * max(1.0, np.abs(want).max())
+        elif dtype == torch.float64:
+            assert (err / (1 + mag)).max() <= 1e-12
+        else:
+            x16 = xt.double().numpy()
+            gold = csr.to_dense() @ x16
+            for y in (got, want):
+                assert np.all(np.abs(y - gold) <= 2.0 ** -6 * mag + 1e-6)
+    res = harness.benchmark_op(op, name="mixed", warmup=1, timed_reps=3,
+                               iters_per_rep=5)
+    assert res.backend == "xla" and 0 < res.ms <= res.eager_ms
+
+
+DISTRIBUTED = dict(force_t=128, use_stream=True, stream_s_batch=8,
+                   stream_span_rows=64)
+# matrices and the planner options that force their plans into shapes
+# the automatic picks do not take
+FORCED = {
+    "mixed_distributed": (lambda: generate.mixed_structure(
+        512, 512, seed=1), DISTRIBUTED),
+    "medium_distributed": (lambda: generate.get_matrix("mixed_medium"),
+                           DISTRIBUTED),
+    "powerlaw_distributed": (lambda: generate.power_law(
+        4096, 4096, 12, seed=3), DISTRIBUTED),
+    "band_distributed": (lambda: generate.get_matrix("banded_medium"),
+                         DISTRIBUTED),
+    "mixed_s_batch": (lambda: generate.mixed_structure(512, 512, seed=1),
+                      dict(stream_s_batch=8)),
+    "empty_stream": (lambda: generate.dense_blocks(
+        512, 512, num_blocks=96, seed=6), dict(use_stream=True)),
+}
+_SFX = {torch.float32: "", torch.float64: "_f64", BF16: "_bf16"}
+
+
+def _forced_op(name, dtype, device):
+    from tilespmv_tpu_torch.core.convert import tile_create
+    from tilespmv_tpu_torch.ops.cuda.lane_plan import build_lane_plan
+    mk, opts = FORCED[name]
+    csr = mk()
+    plan = build_lane_plan(tile_create(csr), compute_dtype=str(dtype)
+                           .removeprefix("torch."), **opts)
+    return csr, TileSpMV.from_plan(plan, device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", XLA_DTYPES)
+@pytest.mark.parametrize("name", sorted(FORCED))
+def test_forced_plan_kernels_match_plain_versions(name, dtype, device):
+    """Every class of a forced plan (T = 128 with c_batch 1 and K 4; one
+    stream class at S = 8, span 64, mono; free placement at S = 8; the
+    all-inert class) through its kernel against its plain version
+    (1e-5 * max(1, max|plain|), f64 1e-12), the SpMM kernels at k = 8 on
+    f32 and bf16 plans; with the counters reset, op(x) launches every
+    class kernel the plan holds, and y passes the golden (f32 rtol 2e-4
+    / atol 1e-4, f64 1e-12 * (1 + |A|·|x|), bf16 _bf16_gate)."""
+    csr, op = _forced_op(name, dtype, device)
+    plan = op.device_plan()
+    if "force_t" in FORCED[name][1] and plan.dense is not None:
+        assert (plan.dense.t_lanes, plan.dense.c_batch,
+                plan.dense.k_panels) == (128, 1, 4)
+    if "stream_s_batch" in FORCED[name][1]:
+        assert plan.stream.s_batch == 8 and plan.stream2 is None
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    xdt = torch.float64 if dtype == torch.float64 else torch.float32
+    want = set()
+    for k in ((None,) if dtype == torch.float64 else (None, 8)):
+        x = torch.from_numpy(np.random.default_rng(k or 0).uniform(
+            -1, 1, (csr.n,) if k is None else (csr.n, k))).to(dtype)
+        xp = reference.pad_x(plan, x.to(xdt).to(device))
+        rhs = () if k is None else (k,)
+        for kind, cls_list in _classes(plan).items():
+            key, wrap, plain = ((kind, *PAIRS[kind]) if k is None
+                                else MM_PAIRS[kind])
+            for cls in cls_list:
+                if cls is None:
+                    continue
+                name_k = key + _SFX[dtype]
+                if k is None:
+                    want.add(name_k)
+                before = kernels.launch_counts()[name_k]
+                yk = wrap(cls, xp, torch.zeros((ylen,) + rhs, dtype=xdt,
+                                               device=device))
+                assert kernels.launch_counts()[name_k] == before + 1
+                yp = plain(cls, xp, torch.zeros((ylen,) + rhs, dtype=xdt,
+                                                device=device))
+                torch.cuda.synchronize()
+                err = float((yk - yp).abs().max())
+                assert err <= tol * max(1.0, float(yp.abs().max())), (
+                    kind, k, err)
+    assert want
+    kernels.reset_launch_counts()
+    xb = _bench_x(csr.n).astype(np.float64)
+    y = op(xb)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert all(counts[k] for k in want), (want, counts)
+    gold = csr.matvec(xb)
+    if dtype == BF16:
+        _bf16_gate(y, gold)
+    elif dtype == torch.float64:
+        mag = _magnitude(csr, xb)
+        assert (np.abs(y.cpu().numpy() - gold) / (1 + mag)).max() <= 1e-12
+    else:
+        np.testing.assert_allclose(y.cpu().numpy(), gold, rtol=2e-4,
+                                   atol=1e-4)
+
+
+def test_spmm_k16_hub_rows_against_float64(device):
+    """matmat at k = 16 on powerlaw_large (hub rows): the fused SpMM
+    kernels and their plain version (`index_add_` on the card), each
+    against a float64 product, not against each other. Each must lie
+    within the float32 summation bound of its row, 2^-24 * (entries of
+    the row + 1) * (|A|·|X|) per element; the kernels also within
+    1e-5 * max(1, max|golden|)."""
+    csr = generate.get_matrix("powerlaw_large")
+    op = TileSpMV(csr, device=device)
+    X = np.random.default_rng(16).uniform(-1, 1, (csr.n, 16)).astype(
+        np.float32)
+    xt = torch.from_numpy(X).to(device)
+    yk = op.matmat(xt)
+    yp = reference.spmm_reference(op.device_plan(), xt)
+    rows = torch.from_numpy(np.repeat(np.arange(csr.m), np.diff(
+        csr.indptr))).to(device)
+    cols = torch.from_numpy(csr.indices.astype(np.int64)).to(device)
+    vals = torch.from_numpy(csr.data).to(device, torch.float64)
+    x64 = xt.double()
+    gold = torch.zeros((csr.m, 16), dtype=torch.float64, device=device)
+    gold.index_add_(0, rows, vals[:, None] * x64[cols])
+    mag = torch.zeros_like(gold).index_add_(
+        0, rows, vals.abs()[:, None] * x64[cols].abs())
+    per_row = torch.from_numpy(np.diff(csr.indptr) + 1.0).to(device)
+    bound = 2.0 ** -24 * per_row[:, None] * mag
+    errs = []
+    for y in (yk, yp):
+        err = (y.double() - gold).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+        errs.append(float(err.max()))
+    print(f"k 16 powerlaw_large: max |Y - float64| kernels {errs[0]:.3e}, "
+          f"plain {errs[1]:.3e}, max |float64| "
+          f"{float(gold.abs().max()):.3e}")
+    assert errs[0] <= 1e-5 * max(1.0, float(gold.abs().max()))

@@ -100,10 +100,21 @@ def test_config_plans_match_reference(fmt):
         rtol=2e-4, atol=1e-4)
 
 
-def test_tile_size_other_than_16_is_not_ported():
+def test_tile_size_other_than_16_runs_the_xla_backend():
+    """At tile size 8 "auto" picks the xla engines, as the reference's
+    TileSpMV does; "pallas" raises NotImplementedError there, as the
+    reference's lane planner does."""
+    csr = make(t_gen, "mixed")
+    cfg = TileConfig(tile_size=8)
     with pytest.raises(NotImplementedError, match="tile_size=16"):
-        TileSpMV(make(t_gen, "mixed"), device="cpu",
-                 config=TileConfig(tile_size=8))
+        TileSpMV(csr, device="cpu", config=cfg, backend="pallas")
+    op = TileSpMV(csr, device="cpu", config=cfg)
+    assert op.backend == "xla"
+    jop = j_spmv.TileSpMV(make(j_gen, "mixed"), config=JConfig(tile_size=8))
+    assert jop.backend == "xla"
+    x = _x(csr.n)
+    np.testing.assert_allclose(op(x).numpy(), np.asarray(jop(jnp.asarray(x))),
+                               rtol=2e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -5,7 +5,10 @@ matrices are partitioned into 16x16 tiles, each tile auto-selected among
 seven storage formats, and y = A*x is computed by the lane-major
 execution plan's class kernels — band, dense, W-class and stream —
 hand-written in CUDA C++ for sm_90a (ops/cuda/csrc), each with a plain
-PyTorch version beside it (ops/cuda/reference.py). The NumPy host side
+PyTorch version beside it (ops/cuda/reference.py). Tile sizes other
+than 16, and `backend="xla"`, run the reference's other path: the
+SpMVPlan (ops/plan.py) through plain torch engines (ops/xla_spmv.py).
+The NumPy host side
 (conversion, planning, the tile-by-tile CPU engine `spmv_cpu`, plan
 files) is this package's own copy, held bit-equal to tilespmv_tpu's by
 the tests. The command-line tool is `python -m tilespmv_tpu_torch.cli`.

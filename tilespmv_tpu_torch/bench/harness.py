@@ -16,8 +16,11 @@ Reported metrics (reference parity + roofline): ms per SpMV, GFLOPS =
 classes must move (utils/profiling.py::class_bound: each class's
 nonzeros as CSR, a band class without a column per entry, the residual
 as CSR, with x and y; not the plan's own byte count, which includes
-arrays no card kernel reads), and the share of the card's HBM peak
-that is.
+arrays no card kernel reads; on the xla backend, whose engines are not
+such classes, the matrix as one CSR: profiling.csr_bound over its nnz,
+m rows and n columns), and the share of the card's HBM peak that is.
+`backend` is the operator's ("pallas" or "xla"), as the reference
+writes it.
 """
 from __future__ import annotations
 
@@ -133,14 +136,17 @@ def benchmark_op(op: TileSpMV, x: Optional[np.ndarray] = None,
     p16, p84 = np.percentile(times, [16, 84])
     spread = float((p84 - p16) / ms) if ms > 0 else math.inf
     dt = max(ms, 1e-9) / 1e3
-    plan = op.device_plan()
-    classes = [c for c in (plan.dense, plan.band, *plan.sparses,
-                           plan.stream, plan.stream2) if c is not None]
-    if plan.residual.val.shape[0]:
-        classes.append(plan.residual)
-    nbytes = profiling.class_bound(classes)["bytes"]
-    gflops = op.flops() / dt / 1e9
     vbytes = torch.finfo(op.dtype).bits // 8
+    plan = op.device_plan()
+    if op.backend == "xla":
+        nbytes = profiling.csr_bound(op.nnz, m, n, vbytes)["bytes"]
+    else:
+        classes = [c for c in (plan.dense, plan.band, *plan.sparses,
+                               plan.stream, plan.stream2) if c is not None]
+        if plan.residual.val.shape[0]:
+            classes.append(plan.residual)
+        nbytes = profiling.class_bound(classes)["bytes"]
+    gflops = op.flops() / dt / 1e9
     reliable = (ms > 0 and spread <= max_spread
                 and not gflops > roofline.peak_compute_gflops(chip, vbytes))
     gbps = nbytes / dt / 1e9
@@ -148,7 +154,7 @@ def benchmark_op(op: TileSpMV, x: Optional[np.ndarray] = None,
         name=name, m=m, n=n, nnz=op.nnz, ms=ms, gflops=gflops,
         gnnz_per_s=op.nnz / dt / 1e9, gbytes_per_s=gbps,
         roofline_frac=gbps / roofline.peak_bandwidth_gbps(chip),
-        chip=chip, backend=op.device.type,
+        chip=chip, backend=op.backend,
         iters=timed_reps * iters_per_rep, reliable=reliable, spread=spread,
         eager_ms=float(np.median(eager)))
 

@@ -28,11 +28,12 @@ def sweep(names: Optional[Iterable[str]] = None,
           json_path: Optional[str] = None,
           verbose: bool = True,
           device=None,
+          backend: str = "auto",
           **bench_kw) -> list[BenchResult]:
     """Benchmarks each corpus matrix of `names` (default: all of
     io/generate.py's CORPUS), converted with `config`, through
-    `TileSpMV(tm, device, compute_dtype)`; reliable rows go to
-    `csv_path`."""
+    `TileSpMV(tm, device, compute_dtype, backend=backend)`; reliable
+    rows go to `csv_path`."""
     names = list(names) if names is not None else sorted(generate.CORPUS)
     results = []
     for name in names:
@@ -41,7 +42,8 @@ def sweep(names: Optional[Iterable[str]] = None,
         t_load = time.perf_counter() - t0
         t0 = time.perf_counter()
         tm = tile_create(csr, config)
-        op = TileSpMV(tm, device=device, dtype=compute_dtype)
+        op = TileSpMV(tm, device=device, dtype=compute_dtype,
+                      backend=backend)
         t_convert = time.perf_counter() - t0
         res = benchmark_op(op, name=name, **bench_kw)
         results.append(res)
@@ -58,7 +60,8 @@ def sweep(names: Optional[Iterable[str]] = None,
                   f"GB/s={res.gbytes_per_s:.1f} "
                   f"roofline={res.roofline_frac:.1%} "
                   f"(gen {t_load:.2f}s, convert+plan {t_convert:.2f}s) "
-                  f"formats={ {k: v for k, v in hist.items() if v} }"
+                  f"formats={ {k: v for k, v in hist.items() if v} } "
+                  f"backend={res.backend}"
                   f"{qual}")
     if json_path:
         with open(json_path, "w") as f:

@@ -47,8 +47,6 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64,
 NOT_PORTED = {
     "scaling": "--scaling (multi-device) is not ported yet: ROADMAP.md "
                "A.12",
-    "tile_size": "--tile-size other than 16 (the reference's XLA "
-                 "engines) is not ported yet: ROADMAP.md A.13",
 }
 
 
@@ -85,9 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the operator runs (reference main.cu -d): "
                         "the CUDA card (default; fails without one) or "
                         "the kernels' plain versions on the CPU")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="pallas: the lane plan's class kernels (tile "
+                        "size 16); xla: the plain torch engines (any "
+                        "tile size); auto: pallas at tile size 16, else "
+                        "xla")
     p.add_argument("--dtype", default="f32",
                    choices=["f32", "f64", "bf16"])
-    p.add_argument("--tile-size", type=int, default=16)
+    p.add_argument("--tile-size", type=int, default=16,
+                   help="tile edge, 1-16 (below 16 the xla backend)")
     p.add_argument("--force-format", default=None,
                    choices=["csr", "coo", "ell", "dns"],
                    help="bypass the selector (forced-format mode)")
@@ -234,15 +239,17 @@ def _sweep_dir(args, dev, dtype, config) -> int:
                                         dtype=dtype)
             else:
                 op = TileSpMV(_load(path), device=dev, dtype=dtype,
-                              config=config)
-                if cpath:
+                              config=config, backend=args.backend)
+                # plan files hold lane plans: only pallas plans are cached
+                if cpath and op.backend == "pallas":
                     save_lane_plan(cpath, op.device_plan())
             res = benchmark_op(
                 op, name=os.path.basename(path),
                 iters_per_rep=args.iters, timed_reps=args.reps,
                 warmup=args.warmup)
             print(f"{res.name}: ms={res.ms:.4f} eager_ms={res.eager_ms:.4f} "
-                  f"GFLOPS={res.gflops:.2f} reliable={res.reliable}")
+                  f"GFLOPS={res.gflops:.2f} reliable={res.reliable} "
+                  f"backend={res.backend}")
             if args.csv:
                 if res.reliable:
                     append_results_csv(args.csv, res)
@@ -261,7 +268,7 @@ def _sweep_dir(args, dev, dtype, config) -> int:
     return 0 if failures == 0 else 1
 
 
-def _device_check(dev, dtype, config) -> int:
+def _device_check(dev, dtype, config, backend) -> int:
     """The reference's gate (main.cu:186-197) on every corpus
     archetype, with the full y vector, on `dev`; 5% in bf16, as the
     reference's device check (tilespmv_tpu/cli.py:262)."""
@@ -269,13 +276,15 @@ def _device_check(dev, dtype, config) -> int:
     bad_total = 0
     for name in sorted(generate.CORPUS):
         csr = generate.get_matrix(name)
-        op = TileSpMV(csr, device=dev, dtype=dtype, config=config)
+        op = TileSpMV(csr, device=dev, dtype=dtype, config=config,
+                      backend=backend)
         x = (np.arange(csr.n) % 10) / 4.0
         y = _y64(op, x)
         ref = csr.matvec(x)
         bad = int(np.sum(np.abs(ref - y) > tol * np.abs(ref) + 1e-4))
         bad_total += bad
-        print(f"{name}: {'PASS' if bad == 0 else f'NO PASS ({bad})'}")
+        print(f"{name}: {'PASS' if bad == 0 else f'NO PASS ({bad})'}"
+              f"  [{op.backend}]")
     print("device-check:", "PASS" if bad_total == 0 else "NO PASS")
     return 0 if bad_total == 0 else 1
 
@@ -312,9 +321,6 @@ def main(argv=None) -> int:
     if args.scaling:
         print(f"error: {NOT_PORTED['scaling']}", file=sys.stderr)
         return 2
-    if args.tile_size != 16:
-        print(f"error: {NOT_PORTED['tile_size']}", file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA card found; pass -d cpu to run the kernels' "
               "plain versions on the CPU", file=sys.stderr)
@@ -326,13 +332,13 @@ def main(argv=None) -> int:
 
     if args.sweep:
         sweep(config=config, compute_dtype=dtype, csv_path=args.csv or None,
-              device=dev, iters_per_rep=args.iters, timed_reps=args.reps,
-              warmup=args.warmup)
+              device=dev, backend=args.backend, iters_per_rep=args.iters,
+              timed_reps=args.reps, warmup=args.warmup)
         return 0
     if args.sweep_dir or args.sweep_manifest:
         return _sweep_dir(args, dev, dtype, config)
     if args.device_check:
-        return _device_check(dev, dtype, config)
+        return _device_check(dev, dtype, config, args.backend)
     if args.load_plan:
         return _run_plan(args, dev, dtype)
     if not args.matrix:
@@ -372,9 +378,13 @@ def main(argv=None) -> int:
         print(f"CPU TileSpMV errcount = {errs}")
 
     t0 = time.perf_counter()
-    op = TileSpMV(tm, device=dev, dtype=dtype)
+    op = TileSpMV(tm, device=dev, dtype=dtype, backend=args.backend)
     print(f"plan built in {time.perf_counter() - t0:.3f}s")
     if args.save_plan:
+        if op.backend != "pallas":
+            print("--save-plan requires the pallas backend",
+                  file=sys.stderr)
+            return 2
         save_lane_plan(args.save_plan, op.device_plan())
         print(f"plan saved to {args.save_plan}")
     t0 = time.perf_counter()
@@ -382,7 +392,7 @@ def main(argv=None) -> int:
     kind = (torch.cuda.get_device_name(op.device) if op.device.type == "cuda"
             else "cpu")
     print(f"device path ran in {time.perf_counter() - t0:.2f}s "
-          f"(dtype={args.dtype}, device={kind})")
+          f"(backend={op.backend}, dtype={args.dtype}, device={kind})")
 
     if not args.no_check:
         # 1% relative tolerance gate (main.cu:186-197)
@@ -392,7 +402,7 @@ def main(argv=None) -> int:
         if errors:
             return 1
 
-    if args.profile:
+    if args.profile and op.backend == "pallas":
         print("plan summary: " + json.dumps(op.summary))
         print("per-format-class cost profile:")
         for cls_name, stats in profile_engines(op, x=x).items():

@@ -256,9 +256,11 @@ def analyze(m: int, n: int, indptr: np.ndarray, indices: np.ndarray,
 
 def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
                 m: int, span_rows: int = 64, dual: bool = False,
-                want_lo: bool = False) -> Optional[dict]:
+                want_lo: bool = False,
+                s_batch: Optional[int] = None) -> Optional[dict]:
     """Run the native stream-plan builder (native/streamplan.cpp),
-    slabs per step picked by its cost model; returns the raw plan
+    `s_batch` slabs per step (None: picked by its cost model); returns
+    the raw plan
     arrays or None when unavailable. `val` is the f32 rounding of each
     value; `want_lo` also exports `val_lo`, the f32 rounding of the
     remainder (val + val_lo is the value the f64 plan holds). `dual`
@@ -272,7 +274,8 @@ def stream_plan(g_row: np.ndarray, g_col: np.ndarray, val: np.ndarray,
     val64 = np.ascontiguousarray(val, dtype=np.float64)
     nz = g_row.shape[0]
     h = lib.sp_build(nz, g_row.ctypes.data, g_col.ctypes.data,
-                     val64.ctypes.data, m, 0, int(span_rows),
+                     val64.ctypes.data, m, int(s_batch or 0),
+                     int(span_rows),
                      int(bool(want_lo)), int(bool(dual)))
     if not h:
         return None

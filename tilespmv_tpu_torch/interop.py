@@ -16,8 +16,10 @@ package wrote, core/serialize.py) keeps its own. bf16 value arrays
 load back as) become this package's bf16 bits (stream_plan.BF16_BITS).
 Any object with the reference's field names converts, so
 core/serialize.py loads plan files of either package through this one
-conversion. This module imports
-nothing of JAX: the caller passes the object in.
+conversion. `spmv_plan_from_jax` does the same for the reference's
+SpMVPlan (the XLA-engine path's plan, ops/plan.py), bf16 values as bits
+too. This module imports nothing of JAX: the caller passes the object
+in.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from .ops.cuda.lane_plan import (BandChunks, DenseChunks, LanePlan,
                                  SparseChunks, value_dtype,
                                  with_dense_derived)
 from .ops.cuda.stream_plan import BF16_BITS, StreamChunks, with_entry_rows
-from .ops.plan import ResidualEngine
+from .ops.plan import (ColEngine, CsrEngine, DenseEngine, EllEngine,
+                       ResidualEngine, RowEngine, SpMVPlan)
 
 
 def _array(v) -> np.ndarray:
@@ -122,3 +125,17 @@ def lane_plan_from_jax(plan) -> LanePlan:
         stream2=stream_chunks_from_jax(plan.stream2),
         m=plan.m, n=plan.n, tilem=plan.tilem, tilen=plan.tilen,
         tile_size=plan.tile_size, nnz=plan.nnz, n_windows=plan.n_windows)
+
+
+def spmv_plan_from_jax(plan) -> SpMVPlan:
+    """This package's SpMVPlan holding the arrays of `plan`, the
+    reference's SpMVPlan (f32, f64 or bf16 values)."""
+    return SpMVPlan(
+        dense=_convert(DenseEngine, plan.dense),
+        rows=_convert(RowEngine, plan.rows),
+        cols=_convert(ColEngine, plan.cols),
+        ells=tuple(_convert(EllEngine, e) for e in plan.ells),
+        csrs=tuple(_convert(CsrEngine, e) for e in plan.csrs),
+        residual=_convert(ResidualEngine, plan.residual),
+        m=plan.m, n=plan.n, tilem=plan.tilem, tilen=plan.tilen,
+        tile_size=plan.tile_size, nnz=plan.nnz)

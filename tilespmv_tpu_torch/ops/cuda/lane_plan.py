@@ -39,10 +39,18 @@ bfloat16 (stream_plan.bf16_bits) and held as its uint16 bit patterns:
 NumPy has no bfloat16. The kernels read those values and compute in f32.
 `value_dtype` reads a value array's dtype, whatever form holds it.
 
+`build_lane_plan` also takes the reference's forcing options, which
+its distributed layer plans every shard with: `force_t` (the dense
+chunk width, c_batch 1 and 4 panels a step for the dense and W-classes),
+`use_stream` (COO tiles into or out of the stream engine; forced in with
+no entries, an all-inert class, stream_plan.empty_stream_chunks),
+`stream_s_batch` (one stream class of that many slabs a step, no
+two-rate split), `stream_span_rows` and `stream_dual` (the stream
+geometry).
+
 The routing and chunking cost constants are the reference planner's
 (measured on its own device). They are kept unchanged so the plans stay
-identical; re-fitting them to the H100 is later work. The
-distributed-layer options (force_t, forced s_batch) are not ported.
+identical; re-fitting them to the H100 is later work.
 """
 from __future__ import annotations
 
@@ -56,7 +64,8 @@ from ...core.tile_matrix import TileMatrix
 from ..plan import ResidualEngine
 from .stream_plan import (BF16, BF16_BITS, MAX_SPAN_ROWS, RW_ROWS,
                           SPAN_ROWS, StreamChunks, bf16_values,
-                          build_stream_classes, f64_plan_value, is_bf16)
+                          build_stream_chunks, build_stream_classes,
+                          empty_stream_chunks, f64_plan_value, is_bf16)
 from . import stream_plan as sp
 
 def value_dtype(a) -> torch.dtype:
@@ -567,7 +576,9 @@ def _sparse_cost(str_, stc, width: int, tilem: int) -> float:
 def _route_classes(counts: np.ndarray) -> np.ndarray:
     """Assign each non-band tile to the dense class or a W class by the
     fixed DENSE_MIN_NNZ threshold. Returns widx in [0, len(W_CHOICES)];
-    len(W_CHOICES) = dense."""
+    len(W_CHOICES) = dense. The reference's default routing mode is this
+    fixed one, and its `fixed=True` (set by force_t) picks it too, so
+    the port has no other mode to choose."""
     widx = np.searchsorted(np.asarray(W_CHOICES), counts + 1)
     widx[counts >= DENSE_MIN_NNZ] = len(W_CHOICES)
     return _merge_thin_classes(widx)
@@ -684,16 +695,17 @@ def _chunk_metadata(trow: np.ndarray, tcol: np.ndarray, tilem: int,
 
 
 def _pack_sparse_class(trow, tcol, counts, r, c, v, width: int,
-                       tilem: int):
+                       tilem: int, force_cb1: bool = False):
     """Pack per-tile triplets (tiles sorted by (trow, tcol), entries
-    row-sorted per tile, counts <= width-1) into a width-W class.
-    Returns (SparseChunks, n_windows)."""
+    row-sorted per tile, counts <= width-1) into a width-W class;
+    `force_cb1` pins one chunk and 4 panels a step. Returns
+    (SparseChunks, n_windows)."""
     W = width
     T = SPARSE_T
     chunk_bytes = (W * T + sparse_meta_rows(W) * T) * 4
-    K = _pick_k(trow, tcol, T)
-    cb = _pick_cb(trow, tcol, tilem, T, K, chunk_bytes)
-    K = _pick_k(trow, tcol, cb * T)
+    K = 4 if force_cb1 else _pick_k(trow, tcol, T)
+    cb = 1 if force_cb1 else _pick_cb(trow, tcol, tilem, T, K, chunk_bytes)
+    K = 4 if force_cb1 else _pick_k(trow, tcol, cb * T)
     md = _chunk_metadata(trow, tcol, tilem, T, K, cb)
     nchunks = md["nchunks"]
 
@@ -876,14 +888,29 @@ def _coo_absorb_cost_ns(ctr: np.ndarray, ctc: np.ndarray,
     return cost
 
 
-def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
+def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32,
+                    force_t: Optional[int] = None,
+                    use_stream: Optional[bool] = None,
+                    stream_s_batch: Optional[int] = None,
+                    stream_span_rows: Optional[int] = None,
+                    stream_dual: Optional[bool] = None) -> LanePlan:
     """Compile a TileMatrix into the lane-major plan (NumPy arrays) for
     `compute_dtype` float32, float64 or BF16 (see the module doc for the
     f64 routing and the bf16 values). COO tiles go to the entry-level
     stream engine by entry count, per-tile density and the
-    absorb-vs-stream cost estimate."""
+    absorb-vs-stream cost estimate, unless `use_stream` forces them into
+    (True) or out of (False) it. `force_t` pins the dense chunk width
+    and one chunk and 4 panels a step for the dense class and every
+    W-class; `stream_s_batch` builds one stream class of that many slabs
+    a step (no two-rate split); `stream_span_rows` and `stream_dual` pin
+    the stream geometry (stream_plan.build_stream_chunks). These are the
+    reference's options, which its distributed layer passes so that
+    shard plans share one program."""
     if is_bf16(compute_dtype):
-        return as_bf16(build_lane_plan(tm))
+        return as_bf16(build_lane_plan(
+            tm, force_t=force_t, use_stream=use_stream,
+            stream_s_batch=stream_s_batch,
+            stream_span_rows=stream_span_rows, stream_dual=stream_dual))
     b = tm.config.tile_size
     if b != 16:
         raise NotImplementedError("the lane plan requires tile_size=16")
@@ -897,30 +924,36 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
     n_windows = max(1, -(-tm.tilem // ROW_WINDOW))
 
     # --- COO tiles: the entry-level stream engine when they are many and
-    # near-singleton; otherwise they join the per-tile routing below.
-    # f64 decides as f32 does (the reference's f64 routing)
+    # near-singleton (or forced there); otherwise they join the per-tile
+    # routing below. f64 decides as f32 does (the reference's f64
+    # routing)
     bk = tm.coo
     coo_entries = int(bk.val.shape[0]) if bk.num_tiles else 0
     coo_avg = coo_entries / max(1, bk.num_tiles) if bk.num_tiles else 0.0
-    use_stream = (coo_entries >= STREAM_MIN_ENTRIES
-                  and coo_avg < COO_SPARSE_MIN_AVG)
-    span_rows = dual = None
-    if use_stream:
-        ccounts0 = np.diff(bk.nnz_ptr)
-        owner0 = np.repeat(np.arange(bk.num_tiles), ccounts0)
-        ctr0 = tm.tile_rowidx[bk.tile_ids].astype(np.int64)
-        g_row = ctr0[owner0] * b + bk.row
-        g_col = (tm.tile_columnidx[bk.tile_ids[owner0]]
-                 .astype(np.int64) * b + bk.col)
-        # the picked geometry goes to the builder (the occupied-cells
-        # sort dominates stream planning; don't pay it twice)
-        stream_ns, span_rows, dual = _coo_stream_cost_ns(g_row, g_col,
-                                                         tm.m)
-        ctc0 = tm.tile_columnidx[bk.tile_ids].astype(np.int64)
-        absorb_ns = _coo_absorb_cost_ns(ctr0, ctc0, ccounts0, tm.tilem)
-        use_stream = absorb_ns >= STREAM_ABSORB_MARGIN * stream_ns
-        if not use_stream:
-            span_rows = dual = None
+    coo_g = None        # (g_row, g_col) of the COO entries, if the
+    #                     absorb decision below already built them
+    if use_stream is None:
+        use_stream = (coo_entries >= STREAM_MIN_ENTRIES
+                      and coo_avg < COO_SPARSE_MIN_AVG)
+        if use_stream:
+            ccounts0 = np.diff(bk.nnz_ptr)
+            owner0 = np.repeat(np.arange(bk.num_tiles), ccounts0)
+            ctr0 = tm.tile_rowidx[bk.tile_ids].astype(np.int64)
+            g_r = ctr0[owner0] * b + bk.row
+            g_c = (tm.tile_columnidx[bk.tile_ids[owner0]]
+                   .astype(np.int64) * b + bk.col)
+            stream_ns, a_span, a_dual = _coo_stream_cost_ns(g_r, g_c, tm.m)
+            ctc0 = tm.tile_columnidx[bk.tile_ids].astype(np.int64)
+            absorb_ns = _coo_absorb_cost_ns(ctr0, ctc0, ccounts0, tm.tilem)
+            if absorb_ns < STREAM_ABSORB_MARGIN * stream_ns:
+                use_stream = False
+            else:
+                coo_g = (g_r, g_c)
+                if stream_span_rows is None and stream_dual is None:
+                    # the picked geometry goes on to the stream plan
+                    # (the occupied-cells sort dominates stream
+                    # planning; don't pay it twice)
+                    stream_span_rows, stream_dual = a_span, a_dual
     if not use_stream and bk.num_tiles:
         ccounts = np.diff(bk.nnz_ptr)
         ctr = tm.tile_rowidx[bk.tile_ids].astype(np.int64)
@@ -1005,17 +1038,19 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
             rounds = np.maximum.reduceat(
                 c_tr, np.nonzero(first)[0]).sum()
             per_step = dtr.size / max(1, int(rounds))
-            t_lanes = next(
+            t_lanes = force_t or next(
                 (t for t in reversed(T_CHOICES) if per_step >= 0.75 * t),
                 T_CHOICES[0])
-            cb = max(1, min(8, int(per_step / t_lanes + 0.5)))
-            kp = _pick_k(dtr, dtc, cb * t_lanes)
+            cb = 1 if force_t else max(
+                1, min(8, int(per_step / t_lanes + 0.5)))
+            kp = 4 if force_t else _pick_k(dtr, dtc, cb * t_lanes)
         else:
-            t_lanes = _pick_t(dtr, dtc, tm.tilem)
+            t_lanes = force_t or _pick_t(dtr, dtc, tm.tilem)
             chunk_bytes = (16 * 16 * t_lanes + DENSE_MROWS * t_lanes) * 4
-            kp = _pick_k(dtr, dtc, t_lanes)
-            cb = _pick_cb(dtr, dtc, tm.tilem, t_lanes, kp, chunk_bytes)
-            kp = _pick_k(dtr, dtc, cb * t_lanes)
+            kp = 4 if force_t else _pick_k(dtr, dtc, t_lanes)
+            cb = 1 if force_t else _pick_cb(dtr, dtc, tm.tilem, t_lanes,
+                                            kp, chunk_bytes)
+            kp = 4 if force_t else _pick_k(dtr, dtc, cb * t_lanes)
         md = _chunk_metadata(dtr, dtc, tm.tilem, t_lanes, kp, cb,
                              unique_rows=f64)
         valid = md["valid"]
@@ -1042,23 +1077,42 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32) -> LanePlan:
         esel = sel_mask[entry_owner]
         sc, nw = _pack_sparse_class(
             trow[sel], tcol[sel], counts[sel], er[esel], ec[esel],
-            ev[esel], W, tm.tilem)
+            ev[esel], W, tm.tilem, force_cb1=force_t is not None)
         sparses.append(sc)
         n_windows = max(n_windows, nw)
 
     # --- stream engine: the COO tiles (decided above) after the deep
     # f64 tiles' entries
     stream = stream2 = None
-    s_rows, s_cols, s_vals = [deep_rows], [deep_cols], [deep_vals]
-    if use_stream:
-        s_rows.append(g_row)
-        s_cols.append(g_col)
-        s_vals.append(bk.val.astype(np.float64))
     if use_stream or deep_vals.size:
-        stream, stream2 = build_stream_classes(
-            np.concatenate(s_rows), np.concatenate(s_cols),
-            np.concatenate(s_vals), tm.m, span_rows=span_rows, dual=dual,
-            compute_dtype=cdt)
+        s_rows, s_cols, s_vals = [deep_rows], [deep_cols], [deep_vals]
+        if use_stream and bk.num_tiles:
+            if coo_g is None:
+                ccounts = np.diff(bk.nnz_ptr)
+                owner = np.repeat(np.arange(bk.num_tiles), ccounts)
+                coo_g = (tm.tile_rowidx[bk.tile_ids[owner]]
+                         .astype(np.int64) * b + bk.row,
+                         tm.tile_columnidx[bk.tile_ids[owner]]
+                         .astype(np.int64) * b + bk.col)
+            s_rows.append(coo_g[0])
+            s_cols.append(coo_g[1])
+            s_vals.append(bk.val.astype(np.float64))
+        g_row = np.concatenate(s_rows)
+        g_col = np.concatenate(s_cols)
+        g_val = np.concatenate(s_vals)
+        if not g_val.size:
+            stream = empty_stream_chunks(max(1, -(-tm.m // RW_ROWS)), cdt,
+                                         s_batch=stream_s_batch or 4)
+        elif stream_s_batch is None:
+            stream, stream2 = build_stream_classes(
+                g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
+                dual=stream_dual, compute_dtype=cdt)
+        else:
+            # a shared s_batch (the distributed layer's shard plans must
+            # agree): one class, no split
+            stream = build_stream_chunks(
+                g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
+                dual=stream_dual, compute_dtype=cdt, s_batch=stream_s_batch)
 
     # leftover residual: the HYB overflow entries
     hb = tm.hyb

@@ -160,6 +160,26 @@ class StreamChunks:
         return self.rounds_
 
 
+def empty_stream_chunks(n_windows: int, compute_dtype=np.float32,
+                        s_batch: int = 4, rounds: int = 4) -> StreamChunks:
+    """All-inert slabs, one step of `s_batch` slabs per window (every
+    step inactive, every `erow` EROW_PAD): the stream class of a plan
+    forced into the stream engine with no entries for it (the
+    reference's `empty_stream_chunks`; `compute_dtype` float32 or
+    float64)."""
+    ns = n_windows * s_batch
+    return with_entry_rows(StreamChunks(
+        val=np.zeros((ns, SUBS, LANES), np.dtype(compute_dtype)),
+        vidx=np.zeros((ns, SUBS, LANES), np.int16),
+        planes=np.zeros((n_windows, step_plane_rows(rounds, s_batch),
+                         LANES), np.int8),
+        sbase=np.zeros(ns, np.int32),
+        cw=np.arange(n_windows, dtype=np.int32),
+        cfirst=np.ones(n_windows, np.int32),
+        sactive=np.zeros(n_windows, np.int32),
+        s_batch=s_batch, rounds_=rounds))
+
+
 # Cost-model constants of the reference planner (measured there on its
 # own device). The port keeps them unchanged so its plans stay identical
 # to the reference's; re-fitting them for the H100 is later work.
@@ -346,6 +366,28 @@ def pick_geometry(g_row: np.ndarray, g_col: np.ndarray, m: int,
     return best
 
 
+def pick_span_rows(g_row: np.ndarray, g_col: np.ndarray, m: int) -> int:
+    """Cost-minimizing superspan width for this entry population, for a
+    layout whose dual choice is given. Wider spans merge (window, span)
+    groups (fewer, fuller slabs) at STAGE_CHUNK_NS a slab per extra x
+    chunk; a group's slab count is the max over its 8 sublanes of
+    ceil(count / CAP). A wider span must beat the default span's cost by
+    more than 5% to displace it."""
+    uw, uq, uc, nq = _occupied_cells(g_row, g_col)
+    best, best_cost = SPAN_CHOICES[0], None
+    cost_default = None
+    for r in SPAN_CHOICES:
+        C, _ = _group_counts_cells(uw, uq, uc, nq, r)
+        slabs = int((-(-C.max(axis=1) // CAP)).sum())
+        cost = slabs * (SLAB_FLOOR_NS + STAGE_CHUNK_NS * (r // 8))
+        if cost_default is None:
+            cost_default = cost
+        if best_cost is None or (cost < best_cost
+                                 and cost < cost_default * 0.95):
+            best, best_cost = r, cost
+    return best
+
+
 def _runs_planes(slab_of: np.ndarray, sub_of: np.ndarray,
                  lane_of: np.ndarray, r: np.ndarray, nslabs: int):
     """Round planes from entry placements. Entries must arrive
@@ -528,36 +570,43 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
                         stack: bool = True,
                         dual: Optional[bool] = None,
                         fp: Optional[bool] = None,
-                        compute_dtype=np.float32):
+                        compute_dtype=np.float32,
+                        s_batch: Optional[int] = None):
     """Compile a global COO entry list into stream slabs of
     `compute_dtype` values (float32, or float64 as f64_plan_value) —
     None for no entries; no entry ever spills: the modular coloring
-    cannot conflict. Pass both `span_rows` and `dual`, or neither: then
+    cannot conflict. With neither `span_rows` nor `dual` given,
     pick_geometry_fp chooses them and the free-placement layout (unless
-    `fp` is given). `stack=False` keeps the round planes in the raw
-    per-slab layout."""
+    `fp` is given); with `dual` alone, pick_span_rows picks the span;
+    `span_rows` alone builds the mono layout (dual False), not free
+    placement, as the reference does. `s_batch` pins the slabs per step
+    (None: pick_s_batch). `stack=False` keeps the round planes in the
+    raw per-slab layout."""
     cdt = np.dtype(compute_dtype)
     f64 = cdt == np.dtype(np.float64)
     n_windows = max(1, -(-m // RW_ROWS))
     nz = g_row.shape[0]
     if nz == 0:
         return None
-    if span_rows is None:
+    if span_rows is None and dual is None:
         span_rows, dual, fp_pick = pick_geometry_fp(g_row, g_col, m)
         if fp is None:
             fp = fp_pick
+    elif span_rows is None:
+        span_rows = pick_span_rows(g_row, g_col, m)
     dual = bool(dual)
     if fp:
-        return _build_fp(g_row, g_col, val, m, stack, cdt)
+        return _build_fp(g_row, g_col, val, m, stack, cdt, s_batch)
     sh = 7 + int(span_rows).bit_length() - 1     # log2(span_rows * 128)
     vmask = 16 * span_rows - 1                   # sub-window col mask
 
     if dual:
-        return _build_dual(g_row, g_col, val, m, span_rows, stack, cdt)
+        return _build_dual(g_row, g_col, val, m, span_rows, stack, cdt,
+                           s_batch)
 
     from ...core import native
     raw = native.stream_plan(g_row, g_col, val, m, span_rows=span_rows,
-                             want_lo=f64)
+                             want_lo=f64, s_batch=s_batch)
     if raw is not None:
         win_full = np.repeat(raw["cw"], raw["s_batch"])
         return _finish_stream(raw["val"], raw["vidx"], raw["planes"],
@@ -600,7 +649,8 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
     # --- pad each window's slab count to a multiple of s_batch ---
     wcnt = np.bincount(raw_win, minlength=n_windows)
     slabs_per_win = np.maximum(1, wcnt)
-    s_batch = pick_s_batch(wcnt)
+    if s_batch is None:
+        s_batch = pick_s_batch(wcnt)
     slabs_pad = -(-slabs_per_win // s_batch) * s_batch
     slab_start = np.concatenate([[0], np.cumsum(slabs_pad)])[:-1]
     nslabs = int(slabs_pad.sum())
@@ -622,8 +672,8 @@ def build_stream_chunks(g_row: np.ndarray, g_col: np.ndarray,
                           stack=stack)
 
 
-def _build_fp(g_row, g_col, val, m, stack,
-              cdt=np.dtype(np.float32)) -> Optional[StreamChunks]:
+def _build_fp(g_row, g_col, val, m, stack, cdt=np.dtype(np.float32),
+              s_batch: Optional[int] = None) -> Optional[StreamChunks]:
     """Free-placement slabs: each of a slab's 8 sublane slots maps to
     an ARBITRARY (same-window) 1024-value x block via the plan-time
     xmap rows — no span alignment, so hypersparse populations pack at
@@ -663,7 +713,8 @@ def _build_fp(g_row, g_col, val, m, stack,
     wcnt = np.zeros(n_windows, np.int64)
     np.maximum.at(wcnt, slot_win, raw_slab_in_win + 1)
     slabs_per_win = np.maximum(1, wcnt)
-    s_batch = pick_s_batch(wcnt)
+    if s_batch is None:
+        s_batch = pick_s_batch(wcnt)
     slabs_pad = -(-slabs_per_win // s_batch) * s_batch
     slab_start = np.concatenate([[0], np.cumsum(slabs_pad)])[:-1]
     nslabs = int(slabs_pad.sum())
@@ -691,7 +742,8 @@ def _build_fp(g_row, g_col, val, m, stack,
 
 
 def _build_dual(g_row, g_col, val, m, span_rows, stack,
-                cdt=np.dtype(np.float32)) -> Optional[StreamChunks]:
+                cdt=np.dtype(np.float32),
+                s_batch: Optional[int] = None) -> Optional[StreamChunks]:
     """Dual-span slab packing: walk each window's (superspan) groups in
     span order; an open slab carries the previous group's leftover
     (span A) and takes min(count, free) of the next group per sublane
@@ -703,7 +755,7 @@ def _build_dual(g_row, g_col, val, m, span_rows, stack,
     f64 = cdt == np.dtype(np.float64)
     from ...core import native
     raw = native.stream_plan(g_row, g_col, val, m, span_rows=span_rows,
-                             dual=True, want_lo=f64)
+                             dual=True, want_lo=f64, s_batch=s_batch)
     if raw is not None:
         win_full = np.repeat(raw["cw"], raw["s_batch"])
         return _finish_stream(raw["val"], raw["vidx"], raw["planes"],
@@ -798,7 +850,8 @@ def _build_dual(g_row, g_col, val, m, span_rows, stack,
     # --- pad each window's slab count to a multiple of s_batch ---
     wcnt = np.bincount(raw_win, minlength=n_windows)
     slabs_per_win = np.maximum(1, wcnt)
-    s_batch = pick_s_batch(wcnt)
+    if s_batch is None:
+        s_batch = pick_s_batch(wcnt)
     slabs_pad = -(-slabs_per_win // s_batch) * s_batch
     slab_start = np.concatenate([[0], np.cumsum(slabs_pad)])[:-1]
     nslabs = int(slabs_pad.sum())
@@ -834,15 +887,17 @@ def build_stream_classes(g_row: np.ndarray, g_col: np.ndarray,
     decides the split on per-slab metadata only, and C++ exports each
     class directly in its final kernel layout. Falls back to
     build_stream_chunks + split_stream_chunks when the library is
-    unavailable (bit-identical results). Pass both `span_rows` and
-    `dual`, or neither (pick_geometry_fp then chooses)."""
+    unavailable (bit-identical results). `span_rows` and `dual` as in
+    build_stream_chunks."""
     if g_row.shape[0] == 0:
         return None, None
     cdt = np.dtype(compute_dtype)
     f64 = cdt == np.dtype(np.float64)
     fp = False
-    if span_rows is None:
+    if span_rows is None and dual is None:
         span_rows, dual, fp = pick_geometry_fp(g_row, g_col, m)
+    elif span_rows is None:
+        span_rows = pick_span_rows(g_row, g_col, m)
     dual = bool(dual)
     if fp:
         # free-placement class: NumPy builder + host split (the native

@@ -10,11 +10,25 @@ takes either); `op.T` is the transposed operator (`rmatvec`), and
 `TileSpMV.from_plan` takes an already-built plan (core/serialize.py's
 `load_lane_plan`). It is an `nn.Module` whose plan arrays are registered
 buffers, so `.to(device)` moves the plan. It is built on the card unless
-the caller asks for another device. The functional `spmv(plan, x)` /
-`spmm(plan, X)` run a device plan: on a CUDA device the hand-written
-class kernels (ops/cuda/kernels.py::spmv_cuda / spmm_cuda), on the CPU
-their plain PyTorch versions (ops/cuda/reference.py::spmv_reference /
-spmm_reference).
+the caller asks for another device.
+
+`backend` takes the reference's names (tilespmv_tpu/ops/spmv.py):
+
+* "pallas" — the lane plan (ops/cuda/lane_plan.py) and its class
+  kernels, which are the hand-written CUDA kernels on the card (their
+  plain PyTorch versions on the CPU); tile size 16 only;
+* "xla"    — the SpMVPlan (ops/plan.py) and the plain torch engines of
+  ops/xla_spmv.py (the reference computes them as plain XLA ops), on
+  the card or the CPU; any tile size 1..16;
+* "auto"   — "pallas" exactly when the tile size is 16, as the
+  reference picks.
+
+The functional `spmv(plan, x)` / `spmm(plan, X)` run a device plan and
+dispatch on its type: an SpMVPlan through the xla engines, a LanePlan on
+a CUDA device through the class kernels (ops/cuda/kernels.py::spmv_cuda
+/ spmm_cuda), on the CPU through their plain versions
+(ops/cuda/reference.py::spmv_reference / spmm_reference). No path gives
+way to another device or backend.
 """
 from __future__ import annotations
 
@@ -30,6 +44,10 @@ from ..io.mmio import CSRMatrix
 from .cuda.kernels import SPMM_K, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
 from .cuda.reference import plan_tensor, spmm_reference, spmv_reference
+from .plan import SpMVPlan, build_plan, map_plan_arrays
+from .xla_spmv import spmm_xla, spmv_xla
+
+BACKENDS = ("auto", "xla", "pallas")
 
 
 def _run(plan: LanePlan, x: torch.Tensor, cuda_fn, cpu_fn) -> torch.Tensor:
@@ -40,17 +58,24 @@ def _run(plan: LanePlan, x: torch.Tensor, cuda_fn, cpu_fn) -> torch.Tensor:
     raise ValueError(f"TileSpMV runs on CUDA or CPU, not {x.device}")
 
 
-def spmv(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over a plan whose tensors lie on x's device: the class
-    kernels on a CUDA device, their plain versions on the CPU."""
+def spmv(plan: Union[LanePlan, SpMVPlan], x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x over a plan whose tensors lie on x's device: an SpMVPlan
+    through the xla engines; a LanePlan through the class kernels on a
+    CUDA device, their plain versions on the CPU."""
+    if isinstance(plan, SpMVPlan):
+        return spmv_xla(plan, x)
     return _run(plan, x, spmv_cuda, spmv_reference)
 
 
-def spmm(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
+def spmm(plan: Union[LanePlan, SpMVPlan], x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for X (n, k) over a plan whose tensors lie on X's
-    device: the fused SpMM kernels for k in SPMM_K (2..16) on an f32 or
-    bf16 plan, one SpMV per column otherwise and on an f64 one, as the
-    reference dispatches (tilespmv_tpu/ops/spmv.py:69-89)."""
+    device: an SpMVPlan through the xla engines on all k columns at
+    once; a LanePlan through the fused SpMM kernels for k in SPMM_K
+    (2..16) on an f32 or bf16 plan, one SpMV per column otherwise and on
+    an f64 one, as the reference dispatches
+    (tilespmv_tpu/ops/spmv.py:69-89)."""
+    if isinstance(plan, SpMVPlan):
+        return spmm_xla(plan, x)
     if x.shape[1] not in SPMM_K or plan.dtype == torch.float64:
         return torch.stack([spmv(plan, x[:, r])
                             for r in range(x.shape[1])], dim=1)
@@ -68,6 +93,8 @@ class TileSpMV(nn.Module):
     >>> op64 = TileSpMV(csr, dtype=torch.float64)
     >>> op16 = TileSpMV(csr, dtype=torch.bfloat16)  # bf16 values and y
     >>> op_cpu = TileSpMV(csr, device="cpu")  # the plain versions
+    >>> op8 = TileSpMV(csr, config=TileConfig(tile_size=8))  # xla
+    >>> opx = TileSpMV(csr, backend="xla")  # the xla engines at B = 16
     >>> op2 = TileSpMV.from_plan(load_lane_plan(path))
     """
 
@@ -76,18 +103,25 @@ class TileSpMV(nn.Module):
     def __init__(self, a: Union[CSRMatrix, TileMatrix],
                  device: Union[str, torch.device, None] = None,
                  dtype: torch.dtype = torch.float32,
-                 config: TileConfig = DEFAULT_CONFIG):
+                 config: TileConfig = DEFAULT_CONFIG,
+                 backend: str = "auto"):
         """`a`: a CSRMatrix (converted with `config`) or a TileMatrix
-        from tile_create with any config of tile size 16 (`config` is
-        then not used). `device`: where the plan lives and the SpMV
-        runs; None is the card ("cuda"), and raises RuntimeError where
-        there is none. `dtype`: the compute dtype, torch.float32,
+        from tile_create with any config (`config` is then not used; its
+        own tile size counts). `device`: where the plan lives and the
+        SpMV runs; None is the card ("cuda"), and raises RuntimeError
+        where there is none. `dtype`: the compute dtype, torch.float32,
         torch.float64 or torch.bfloat16 (the reference's
-        `compute_dtype`); x is cast to it and y has it (bf16: the values
-        and x are bf16, every product and sum is taken in float32, and
-        y is rounded to bf16 once, as in the reference). A tile size
-        other than 16 raises NotImplementedError."""
+        `compute_dtype`); x is cast to it and y has it (bf16 on the
+        pallas backend: the values and x are bf16, every product and sum
+        is taken in float32, and y is rounded to bf16 once, as in the
+        reference; on the xla backend the engines compute in bf16 as the
+        reference's do). `backend`: "auto", "xla" or "pallas" (see the
+        module doc); "pallas" with a tile size other than 16 raises
+        NotImplementedError, as the reference's lane planner does."""
         super().__init__()
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}: one of "
+                             f"{BACKENDS}")
         device = self._setup(device, dtype)
         # kept for .T: the transpose is planned from the source CSR (a
         # TileMatrix cannot be transposed without re-tiling anyway)
@@ -95,15 +129,19 @@ class TileSpMV(nn.Module):
         self._config = config
         if not isinstance(a, TileMatrix):
             a = tile_create(a, config)
-        self._register_plan(build_lane_plan(
+        if backend == "auto":
+            backend = "pallas" if a.config.tile_size == 16 else "xla"
+        build = build_lane_plan if backend == "pallas" else build_plan
+        self._register_plan(build(
             a, compute_dtype=str(dtype).removeprefix("torch.")), device)
 
     @classmethod
-    def from_plan(cls, plan: LanePlan,
+    def from_plan(cls, plan: Union[LanePlan, SpMVPlan],
                   device: Union[str, torch.device, None] = None,
                   dtype: torch.dtype = torch.float32) -> "TileSpMV":
-        """The operator over an already-built plan (arrays NumPy or
-        tensors, e.g. core/serialize.py's load_lane_plan), skipping
+        """The operator over an already-built plan, a LanePlan (backend
+        "pallas") or an SpMVPlan (backend "xla"), arrays NumPy or
+        tensors (e.g. core/serialize.py's load_lane_plan), skipping
         conversion and planning, which are the largest one-time host
         cost. `dtype` must be the plan's value dtype (ValueError
         otherwise); `device` as in the constructor. Such an operator has
@@ -137,18 +175,22 @@ class TileSpMV(nn.Module):
         object.__setattr__(self, "_transpose", None)
         return device
 
-    def _register_plan(self, plan: LanePlan, device) -> None:
-        """Registers each plan array as a buffer and moves them to
-        `device`."""
+    def _register_plan(self, plan: Union[LanePlan, SpMVPlan],
+                       device) -> None:
+        """Sets the backend from the plan's type, registers each plan
+        array as a buffer and moves them to `device`."""
+        self.backend = "xla" if isinstance(plan, SpMVPlan) else "pallas"
+        self._map = (map_plan_arrays if isinstance(plan, SpMVPlan)
+                     else map_arrays)
         self.summary = plan.summary()
         self.nnz = plan.nnz
         self._bytes_accessed = plan.bytes_accessed()
 
         def register(name, arr):
             self.register_buffer(name, plan_tensor(arr))
-        map_arrays(plan, register)
+        self._map(plan, register)
         # the plan with each array replaced by its buffer's name
-        self._skeleton: LanePlan = map_arrays(plan, lambda n, _: n)
+        self._skeleton = self._map(plan, lambda n, _: n)
         self.to(device)
 
     @property
@@ -159,9 +201,9 @@ class TileSpMV(nn.Module):
     def device(self) -> torch.device:
         return self.residual_val.device
 
-    def device_plan(self) -> LanePlan:
+    def device_plan(self) -> Union[LanePlan, SpMVPlan]:
         """The plan with its arrays as this module's (device) buffers."""
-        return map_arrays(self._skeleton, lambda n, _: getattr(self, n))
+        return self._map(self._skeleton, lambda n, _: getattr(self, n))
 
     def flops(self) -> int:
         """Floating-point operations of one SpMV: 2 * nnz."""
@@ -174,8 +216,8 @@ class TileSpMV(nn.Module):
     @property
     def T(self) -> "TileSpMV":
         """The transposed operator (y = A^T @ x), converted and planned
-        on first use (on this operator's device, in its dtype and
-        config) and cached; `op.T.T is op`. It is planned from the
+        on first use (on this operator's device, in its dtype, config
+        and backend) and cached; `op.T.T is op`. It is planned from the
         source CSR (utils/host.py::csr_transpose, the reference's
         CSR->CSC pass): A^T's tiles differ from A's, so it gets its own
         format selection and plan. Raises ValueError for an operator
@@ -188,7 +230,8 @@ class TileSpMV(nn.Module):
                     "deserialized plan) to use the transposed operator")
             from ..utils.host import csr_transpose
             t = TileSpMV(csr_transpose(self._source_csr), device=self.device,
-                         dtype=self.dtype, config=self._config)
+                         dtype=self.dtype, config=self._config,
+                         backend=self.backend)
             object.__setattr__(t, "_transpose", self)
             object.__setattr__(self, "_transpose", t)
         return self._transpose

@@ -246,8 +246,11 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     launches the kernel (CUDA-event timing), on a CPU operator it runs
     the plain version (host clock). The residual is timed with
     reference.residual_add, the main path's `index_add_`. `x` defaults to
-    bench.py's (i % 10) / 4.
+    bench.py's (i % 10) / 4. An operator on the xla backend, which has
+    no such classes, raises ValueError (as the reference's does).
     """
+    if op.backend != "pallas":
+        raise ValueError("profile_engines requires the pallas backend")
     plan = op.device_plan()
     if x is None:
         x = (np.arange(plan.n) % 10) / 4.0
