@@ -161,14 +161,40 @@ Phases, each fatal on failure:
    (f64: KERNEL_TOL_F64), its classes' forced layout and its time
    printed beside its phase 4, 7, 8 or 11 time on the automatic plan.
    The phase's seconds are printed.
+13. multi-device — the trio at full size on `make_mesh(4,
+   devices=["cuda:0"] * 4)`, four virtual shards of the card
+   (tilespmv_tpu_torch/parallel): (a) `DistributedSpMV` in f32 with
+   x_mode allgather, replicated, halo and auto, and on mixed_large in
+   f64 (allgather, halo) and bf16 (allgather); (b) `DistributedSpMV2D`
+   on `make_mesh2d(2, 2, ...)`, the trio in f32 and mixed_large in f64.
+   Each operator is built (its seconds of conversion, planning and
+   upload, the global use_stream, each shard's plan MB and classes, the
+   halo's max_pk and traffic_ratio and the x bytes exchanged per call
+   printed); with the launch counters reset just before its first
+   op(x), every class kernel its shard plans hold must launch, and y
+   must pass phase 3's gates (f32), phase 8's 1e-12 (f64) or phase 11's
+   2^-8 (bf16), and lie within KERNEL_TOL (f64: KERNEL_TOL_F64) times
+   max(1, max|y|) of the single-device operator's y (phases 3, 8); its
+   graph ms and eager ms per call (bench/scaling.py::time_op) beside
+   the single-device operator's, and their ratio. (c) On mixed_large
+   with `TileConfig(tile_size=8)` the xla engines per shard: no class
+   kernel may launch, phase 3's gates hold. (d) `scaling_sweep` on
+   mixed_large and powerlaw_large at 1, 2 and 4 virtual shards. (e)
+   `cli.main(["--scaling", "mixed_large"])` exits 0, and
+   `examples.distributed_run.main(quick=True)` passes. Virtual shards
+   run one after another on the card: the times measure what
+   partitioning costs, not scaling. The phase's seconds are printed.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
 ms, plain_ms, bound_ms and bound_by, library_ms, share of bound; a
-"forced" list per kernel: plan, error, ms and the automatic plan's ms)
-with an "xla" entry per matrix (ms and eager_ms at tile sizes 16 and 8,
-the lane plan's, cuSPARSE's, conversion and planning seconds), then
-the last line
+"forced" list per kernel: plan, error, ms and the automatic plan's ms;
+"distributed_launches": the SpMV kernels' launches over phase 13's
+main-path calls) with an "xla" entry per matrix (ms and eager_ms at
+tile sizes 16 and 8, the lane plan's, cuSPARSE's, conversion and
+planning seconds) and a "distributed" entry per matrix (per operator:
+ms, eager ms, the single-device operator's, error, traffic_ratio,
+exchanged bytes; the sweep's points), then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
 """
@@ -265,6 +291,8 @@ XLA_TILE = 8
 # this size, ROADMAP.md C)
 XLA_BF16_RTOL, XLA_BF16_ATOL = 2.0 ** -6, 1e-3
 MTX = "tests/fixtures/bcsstk_style_sym.mtx"
+# phase 13's mesh: this many virtual shards of the one card
+VIRTUAL_SHARDS = 4
 
 
 def log(msg: str) -> None:
@@ -1520,6 +1548,196 @@ def forced_phase(dev, card, csrs, results) -> None:
                    if auto is not None else "") + f" [{card}]")
 
 
+def dist_kernel_names(op) -> set:
+    """Names of the SpMV class kernels the shard plans of a distributed
+    operator hold (its dtype's instances)."""
+    import torch
+    sfx = {torch.float32: "", torch.float64: "_f64",
+           torch.bfloat16: "_bf16"}[op.dtype]
+    out = set()
+    for sh in op.shards + (getattr(op, "foreign_shards", None) or []):
+        if sh.backend != "pallas":
+            continue
+        cl = class_lists(sh.device_plan())
+        out |= {k + sfx for k in ("band", "dense", "sparse", "stream")
+                if cl[k]}
+    return out
+
+
+def dist_shards_line(op) -> str:
+    """Per shard: its plan MB and classes (kind and chunks or slabs)."""
+    parts = []
+    for label, shards in (("", op.shards),
+                          ("foreign ", getattr(op, "foreign_shards", None)
+                           or [])):
+        for d, sh in enumerate(shards):
+            cls = " ".join(f"{c['kind']}:{c.get('chunks', c.get('slabs'))}"
+                           for c in sh.summary.get("classes", []))
+            parts.append(f"{label}{d}: {sh.summary['plan_mbytes']} MB "
+                         f"[{cls}]")
+    return "; ".join(parts)
+
+
+def distributed_phase(dev, card, csrs, ys, ops, ops64) -> tuple:
+    """Phase 13 (see the module doc); `ys` and `ops` are phase 3's f32 y
+    and phase 2's operators, `ops64` phase 8's. Returns the JSON line's
+    "distributed" entry and the class kernels' launches summed over the
+    phase's main-path calls."""
+    import collections
+    import torch
+    from tilespmv_tpu_torch import TileConfig, TileSpMV
+    from tilespmv_tpu_torch.bench.harness import _reps_cuda
+    from tilespmv_tpu_torch.bench.scaling import scaling_sweep, time_op
+    from tilespmv_tpu_torch.examples import distributed_run
+    from tilespmv_tpu_torch.ops.cuda import kernels
+    from tilespmv_tpu_torch.parallel import (DistributedSpMV,
+                                             DistributedSpMV2D, make_mesh,
+                                             make_mesh2d)
+    t_phase = time.perf_counter()
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    dname = {f32: "f32", f64: "f64", bf16: "bf16"}
+    devices = [dev] * VIRTUAL_SHARDS
+    mesh = make_mesh(VIRTUAL_SHARDS, devices=devices)
+    launched = collections.Counter()
+    out = {n: {} for n in FLAGSHIP}
+    single = {}
+
+    def single_ms(n, dt):
+        """Graph and eager ms of the single-device operator."""
+        if (n, dt) not in single:
+            if dt == bf16:
+                op1 = TileSpMV(csrs[n], device=dev, dtype=bf16)
+            else:
+                op1 = (ops if dt == f32 else ops64)[n]
+            xt = torch.from_numpy(bench_x(csrs[n].n)).to(dev, dt)
+            g, e = _reps_cuda(op1, xt, 2, 5, 20)
+            single[n, dt] = (statistics.median(g), statistics.median(e))
+        return single[n, dt]
+
+    def run(label, n, op, dt, plan_s):
+        """The main-path call (counters reset just before), its gates
+        and its times; returns its JSON entry."""
+        csr = csrs[n]
+        x = bench_x(csr.n)
+        xin = x.astype(np.float64) if dt == f64 else x
+        kernels.reset_launch_counts()
+        y = op(xin)
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        want = dist_kernel_names(op)
+        missing = [k for k in want if not cnt[k]]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched "
+                                 f"({cnt})")
+        launched.update(cnt)
+        if y.device != dev:
+            raise AssertionError(f"{label}: y on {y.device}")
+        ref = golden(csr, x)
+        if dt == f32:
+            yc = y.cpu().numpy()
+            gate(label, yc, ref)
+            y1 = ys[n].cpu().numpy()
+            err = float(np.abs(yc - y1).max())
+            bound = KERNEL_TOL * max(1.0, float(np.abs(y1).max()))
+        elif dt == f64:
+            yc = y.cpu().numpy()
+            gate64(label, csr, yc, xin)
+            y1 = ops64[n](xin).cpu().numpy()
+            err = float(np.abs(yc - y1).max())
+            bound = KERNEL_TOL_F64 * max(1.0, float(np.abs(y1).max()))
+        else:
+            err = gate_bf16(label, y, ref)
+            bound = None
+        if bound is not None and not err <= bound:
+            raise AssertionError(f"{label}: max |y - single-device y| "
+                                 f"{err:.3e} > {bound:.3e}")
+        ms, eager = time_op(op, x, warmup=2, reps=5, iters=20)
+        s_ms, s_eager = single_ms(n, dt)
+        halo = getattr(op, "halo", None)
+        xb = op.exchange_bytes() if hasattr(op, "exchange_bytes") else None
+        log(f"{label}: x_mode {getattr(op, 'x_mode', '2-D')}, "
+            f"{'max |y - single-device y| ' if bound else 'bf16 gate err '}"
+            f"{err:.3e}, launches "
+            f"{json.dumps({k: v for k, v in cnt.items() if v})}; "
+            f"{ms:.4f} ms (graph replay), eager {eager:.4f} ms; "
+            f"single device {s_ms:.4f} / {s_eager:.4f} ms; ratio "
+            f"{ms / s_ms:.2f} / {eager / s_eager:.2f} (virtual shards on "
+            f"one card) [{card}]")
+        return dict(x_mode=getattr(op, "x_mode", "2d"), ms=ms,
+                    eager_ms=eager, single_ms=s_ms, single_eager_ms=s_eager,
+                    ratio=ms / s_ms, eager_ratio=eager / s_eager,
+                    max_abs_err=err, plan_s=plan_s,
+                    traffic_ratio=halo.traffic_ratio if halo else None,
+                    max_pk=halo.max_pk if halo else None,
+                    exchange_bytes=xb, use_stream=list(op.use_stream))
+
+    # (a) 1-D: the trio in every x mode in f32, mixed_large in f64 and
+    # bf16; (b) 2-D on a 2 x 2 mesh
+    specs = [(n, m, f32) for n in FLAGSHIP for m in
+             ("allgather", "replicated", "halo", "auto")]
+    specs += [("mixed_large", "allgather", f64), ("mixed_large", "halo", f64),
+              ("mixed_large", "allgather", bf16)]
+    specs += [(n, "2d", f32) for n in FLAGSHIP]
+    specs += [("mixed_large", "2d", f64)]
+    for n, mode, dt in specs:
+        t0 = time.perf_counter()
+        if mode == "2d":
+            op = DistributedSpMV2D(csrs[n], mesh=make_mesh2d(
+                2, 2, devices=devices), dtype=dt)
+        else:
+            op = DistributedSpMV(csrs[n], mesh=mesh, x_mode=mode, dtype=dt)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        label = f"distributed {n} {mode} {dname[dt]}"
+        halo = getattr(op, "halo", None)
+        log(f"{label}: convert+plan+upload {plan_s:.2f} s, use_stream "
+            f"{op.use_stream}"
+            + (f", halo max_pk {halo.max_pk} traffic_ratio "
+               f"{halo.traffic_ratio:.4f}" if halo else "")
+            + (f", x bytes exchanged per call {op.exchange_bytes()}"
+               if hasattr(op, "exchange_bytes") else "")
+            + f"; shards {dist_shards_line(op)}")
+        out[n][f"{mode}_{dname[dt]}"] = run(label, n, op, dt, plan_s)
+        del op
+
+    # (c) the xla engines per shard: no class kernel launches
+    n = "mixed_large"
+    op = DistributedSpMV(csrs[n], mesh=mesh,
+                         config=TileConfig(tile_size=XLA_TILE))
+    x = bench_x(csrs[n].n)
+    kernels.reset_launch_counts()
+    y = op(x)
+    torch.cuda.synchronize()
+    cnt = kernels.launch_counts()
+    if op.backend != "xla" or any(cnt.values()):
+        raise AssertionError(f"distributed xla: backend {op.backend}, "
+                             f"launches {cnt}")
+    gate(f"distributed {n} xla tile {XLA_TILE}", y.cpu().numpy(),
+         golden(csrs[n], x))
+    ms, eager = time_op(op, x)
+    out[n]["xla_allgather_f32"] = dict(ms=ms, eager_ms=eager)
+    log(f"distributed {n} xla tile {XLA_TILE}: gate ok, no class kernel "
+        f"launched; {ms:.4f} ms (graph replay), eager {eager:.4f} ms "
+        f"[{card}]")
+    del op
+
+    # (d) the sweep, (e) the command-line tool and the example
+    for n in ("mixed_large", "powerlaw_large"):
+        log(f"scaling sweep {n} (virtual shards on one card) [{card}]:")
+        pts = scaling_sweep(csrs[n], device_counts=[1, 2, VIRTUAL_SHARDS],
+                            devices=devices)
+        out[n]["sweep"] = [dataclasses.asdict(p) for p in pts]
+    run_cli(card, ["--scaling", "mixed_large", "--csv", "", "--iters", "20",
+                   "--reps", "3"])
+    err = distributed_run.main(quick=True)
+    if not err < 1e-4:
+        raise AssertionError(f"distributed_run: error {err:.3e}")
+    log(f"distributed_run.main(quick=True): error {err:.3e}")
+    log(f"phase 13 (multi-device, {VIRTUAL_SHARDS} virtual shards): "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out, launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1639,7 +1857,18 @@ def main() -> int:
     log(f"phase 12 (xla engines and forced lane plans): "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
-    log(json.dumps({"kernels": results, "xla": xla}))
+    # 13. the multi-device layer on virtual shards of the card
+    dist, dist_launches = distributed_phase(dev, card, csrs, ys, ops, ops64)
+    for r in results:
+        if r["name"] in KERNELS or r["name"] in F64_KERNELS \
+                or r["name"] in BF16_KERNELS:
+            r["distributed_launches"] = dist_launches[r["name"]]
+    for k in ("band", "dense", "sparse", "stream", "dense_f64",
+              "stream_f64", "dense_bf16", "sparse_bf16", "stream_bf16"):
+        if not dist_launches[k]:
+            raise AssertionError(f"phase 13: kernel {k} never launched")
+
+    log(json.dumps({"kernels": results, "xla": xla, "distributed": dist}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -146,11 +146,16 @@ def test_bf16_plan_file(tmp_path, capsys):
         cli.main(["-d", "cpu", "--load-plan", plan, "--csv", ""] + QUICK)
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--scaling"], "A.12")])
-def test_unported_options_exit_2(args, item, capsys):
-    assert cli.main(["-d", "cpu"] + args) == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+def test_scaling(capsys):
+    """--scaling: the strong-scaling sweep over eight virtual CPU
+    devices, one line per device count (1, 2, 4, 8)."""
+    assert cli.main(["-d", "cpu", "--scaling", "mixed_small"]
+                    + QUICK) == 0
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("devices=")]
+    assert [int(ln.split("=")[1].split(":")[0]) for ln in lines] == [
+        1, 2, 4, 8]
+    assert all("virtual shards" in ln for ln in lines[1:])
 
 
 @pytest.mark.parametrize("args", [

@@ -9,7 +9,10 @@ arms), the operator against the float64 golden, `profile_engines` and
 `.T` on a rectangular matrix, the bench harness's CUDA-graph time, and
 the eight bf16-value kernels (`*_bf16`, f32 sums on f32 x and y) on
 every class, at k = 2, 5 and 16, with Inf / NaN in x and on empty
-classes, the bf16 operator against the golden within 2^-8.
+classes, the bf16 operator against the golden within 2^-8; and the
+multi-device layer (1-D in every x mode and dtype, 2-D, the timing and
+the scaling sweep) on four virtual shards of the card, and over every
+visible card where there are several.
 Marked `cuda`: skipped where there is no GPU. Imports no JAX, so
 it also runs on a machine without it:
 
@@ -1224,3 +1227,147 @@ def test_spmm_k16_hub_rows_against_float64(device):
           f"plain {errs[1]:.3e}, max |float64| "
           f"{float(gold.abs().max()):.3e}")
     assert errs[0] <= 1e-5 * max(1.0, float(gold.abs().max()))
+
+
+# the multi-device layer on four virtual shards of the card
+VIRTUAL4 = ["cuda:0"] * 4
+DIST_CASES = [("mixed_medium", m, dt) for m in ("allgather", "replicated",
+                                                 "halo")
+              for dt in XLA_DTYPES] + [("banded_medium", "halo",
+                                        torch.float32),
+                                       ("banded_medium", "auto",
+                                        torch.float32)]
+
+
+def _dist_close(got: torch.Tensor, want: torch.Tensor, csr, x, dtype):
+    """Card y against the same operator's y from the plain versions on
+    a CPU mesh: f32 1e-5 * max(1, max|want|) (atomics add in any order),
+    f64 1e-12 * (1 + |A|·|x|), bf16 2^-7 * |A|·|x| + 1e-5 (each plan's
+    y rounded to bf16 from f32 sums taken in another order)."""
+    assert got.dtype == want.dtype == dtype and got.device.type == "cuda"
+    g = got.double().cpu().numpy()
+    w = want.double().numpy()
+    if dtype == torch.float32:
+        assert np.max(np.abs(g - w)) <= 1e-5 * max(1.0, np.max(np.abs(w)))
+    else:
+        mag = _magnitude(csr, x)
+        tol = (1e-12 * (1 + mag) if dtype == torch.float64
+               else 2.0 ** -7 * mag + 1e-5)
+        assert np.all(np.abs(g - w) <= tol), np.max(np.abs(g - w) - tol)
+
+
+@pytest.mark.parametrize("name,x_mode,dtype", DIST_CASES)
+def test_distributed_on_virtual_shards(name, x_mode, dtype, device):
+    """DistributedSpMV on ["cuda:0"] * 4: with the counters reset, one
+    op(x) launches the class kernels of every shard plan; y against the
+    same operator on a CPU mesh (the plain versions) and the golden;
+    the per-shard outputs on the card."""
+    from tilespmv_tpu_torch.parallel import DistributedSpMV, make_mesh
+    csr = generate.get_matrix(name)
+    op = DistributedSpMV(csr, mesh=make_mesh(4, devices=VIRTUAL4),
+                         x_mode=x_mode, dtype=dtype)
+    cpu = DistributedSpMV(csr, mesh=make_mesh(4, devices=["cpu"] * 4),
+                          x_mode=x_mode, dtype=dtype)
+    assert op.x_mode == cpu.x_mode
+    x = _bench_x(csr.n).astype(np.float64)
+    kernels.reset_launch_counts()
+    y = op(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    shards = op.shards + (op.foreign_shards or [])
+    want = {k + _SFX[dtype] for sh in shards
+            for k, cls in _classes(sh.device_plan()).items()
+            if any(c is not None for c in cls)}
+    assert want and all(counts[k] for k in want), (want, counts)
+    _dist_close(y, cpu(x), csr, x, dtype)
+    gold = csr.matvec(x)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(y.cpu().numpy(), gold, rtol=2e-4,
+                                   atol=1e-4)
+    elif dtype == torch.float64:
+        mag = _magnitude(csr, x)
+        assert (np.abs(y.cpu().numpy() - gold) / (1 + mag)).max() <= 1e-12
+    elif x_mode != "halo":
+        _bf16_gate(y, gold)
+    blocks = op.shard_outputs(x)
+    assert [b.device for b in blocks] == op.mesh.flat()
+    assert torch.equal(torch.cat(blocks)[: csr.m], op(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_distributed2d_on_virtual_shards(dtype, device):
+    from tilespmv_tpu_torch.parallel import DistributedSpMV2D, make_mesh2d
+    csr = generate.mixed_structure(4096, 8192, seed=5)
+    op = DistributedSpMV2D(csr, mesh=make_mesh2d(2, 2, devices=VIRTUAL4),
+                           dtype=dtype)
+    cpu = DistributedSpMV2D(csr, mesh=make_mesh2d(2, 2,
+                                                   devices=["cpu"] * 4),
+                            dtype=dtype)
+    x = _bench_x(csr.n).astype(np.float64)
+    kernels.reset_launch_counts()
+    y = op(x)
+    torch.cuda.synchronize()
+    assert any(kernels.launch_counts().values())
+    _dist_close(y, cpu(x), csr, x, dtype)
+    gold = csr.matvec(x)
+    mag = _magnitude(csr, x)
+    assert (np.abs(y.cpu().numpy() - gold) / (1 + mag)).max() <= (
+        1e-12 if dtype == torch.float64 else 1e-4)
+
+
+def test_distributed_timing_and_sweep(device):
+    """time_op on four virtual shards: a CUDA graph of op(x) calls
+    (graph ms > 0, within the eager time); the scaling sweep at 1, 2
+    and 4 virtual shards."""
+    from tilespmv_tpu_torch.bench.scaling import scaling_sweep, time_op
+    from tilespmv_tpu_torch.parallel import DistributedSpMV, make_mesh
+    csr = generate.get_matrix("mixed_medium")
+    op = DistributedSpMV(csr, mesh=make_mesh(4, devices=VIRTUAL4),
+                         x_mode="halo")
+    ms, eager = time_op(op, _bench_x(csr.n), reps=3, iters=5)
+    assert 0 < ms <= eager
+    pts = scaling_sweep(csr, device_counts=[1, 2, 4], devices=VIRTUAL4,
+                        reps=3, iters=5)
+    assert [p.n_devices for p in pts] == [1, 2, 4]
+    assert all(p.ms > 0 for p in pts) and pts[0].efficiency == 1.0
+
+
+@pytest.mark.parametrize("name", ["banded_medium", "mixed_medium"])
+def test_distributed_across_cards(name, device):
+    """Over every visible card (make_mesh(), make_mesh2d(2, n / 2)),
+    where there are two or more: the 1-D operator in each x mode and the
+    2-D one launch their shards' class kernels, y equals the
+    single-device operator's within 1e-5 * max(1, max|y|) and passes
+    the golden, each row block lies on its card; time_op times the calls
+    by events on every card."""
+    from tilespmv_tpu_torch.bench.scaling import time_op
+    from tilespmv_tpu_torch.parallel import (DistributedSpMV,
+                                             DistributedSpMV2D, make_mesh,
+                                             make_mesh2d)
+    ncard = torch.cuda.device_count()
+    if ncard < 2:
+        pytest.skip("needs two or more cards")
+    csr = generate.get_matrix(name)
+    x = _bench_x(csr.n)
+    y1 = TileSpMV(csr, device=device)(x).cpu().numpy()
+    ops = [DistributedSpMV(csr, mesh=make_mesh(), x_mode=m)
+           for m in ("allgather", "replicated", "halo")]
+    if ncard % 2 == 0:
+        ops.append(DistributedSpMV2D(csr, mesh=make_mesh2d(2, ncard // 2)))
+    for op in ops:
+        kernels.reset_launch_counts()
+        y = op(x)
+        for d in range(ncard):
+            torch.cuda.synchronize(d)
+        assert any(kernels.launch_counts().values())
+        assert y.device == torch.device("cuda", 0)
+        err = np.max(np.abs(y.cpu().numpy() - y1))
+        assert err <= 1e-5 * max(1.0, np.max(np.abs(y1)))
+        np.testing.assert_allclose(y.cpu().numpy(), csr.matvec(x),
+                                   rtol=2e-4, atol=1e-4)
+        blocks = op.shard_outputs(x)
+        assert {b.device.index for b in blocks} == (
+            set(range(ncard)) if len(blocks) == ncard
+            else set(range(0, ncard, ncard // 2)))
+        ms, eager = time_op(op, x, reps=3, iters=5)
+        assert ms == eager > 0

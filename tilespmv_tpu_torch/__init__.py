@@ -11,7 +11,11 @@ SpMVPlan (ops/plan.py) through plain torch engines (ops/xla_spmv.py).
 The NumPy host side
 (conversion, planning, the tile-by-tile CPU engine `spmv_cpu`, plan
 files) is this package's own copy, held bit-equal to tilespmv_tpu's by
-the tests. The command-line tool is `python -m tilespmv_tpu_torch.cli`.
+the tests. The multi-device layer (`parallel`: the 1-D row partition
+with allgather, replicated or halo x exchange, and the 2-D block
+partition) drives one `TileSpMV` per shard over a mesh of torch
+devices from one process; `bench.scaling` sweeps it over device counts.
+The command-line tool is `python -m tilespmv_tpu_torch.cli`.
 Imports torch and numpy, never JAX.
 """
 from .config import (DEFAULT_CONFIG, FMT_COO, FMT_CSR, FMT_DNS, FMT_DNSCOL,

@@ -12,6 +12,7 @@ versions on the CPU), checks it at 1% relative tolerance
 Usage:
     python -m tilespmv_tpu_torch.cli [options] <matrix.mtx | corpus-name>
     python -m tilespmv_tpu_torch.cli --sweep    # whole synthetic corpus
+    python -m tilespmv_tpu_torch.cli --scaling [matrix]  # over devices
 
 Without a CUDA card it fails unless given `-d cpu`; it never falls back
 to the CPU by itself.
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .bench.harness import append_results_csv, benchmark_op
+from .bench.scaling import scaling_sweep
 from .bench.sweep import sweep
 from .config import TileConfig
 from .core.convert import tile_create
@@ -38,16 +40,11 @@ from .core.serialize import (load_lane_plan, load_tile_matrix,
 from .io import generate, mmio
 from .ops.cpu_reference import spmv_cpu
 from .ops.spmv import TileSpMV
+from .parallel.mesh import run_devices
 from .utils.profiling import profile_engines
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64,
           "bf16": torch.bfloat16}
-# options of the reference this package does not serve yet, with the
-# ROADMAP.md item that ports them
-NOT_PORTED = {
-    "scaling": "--scaling (multi-device) is not ported yet: ROADMAP.md "
-               "A.12",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,8 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sweep", action="store_true",
                    help="benchmark the whole synthetic corpus")
     p.add_argument("--scaling", action="store_true",
-                   help="strong-scaling sweep over devices (not ported "
-                        "yet)")
+                   help="strong-scaling sweep over the device mesh "
+                        "(mixed_medium by default): the visible cards, "
+                        "four virtual shards of a lone card, or with -d "
+                        "cpu eight virtual CPU devices")
     p.add_argument("-d", "--device", default="cuda",
                    choices=["cuda", "cpu"],
                    help="where the operator runs (reference main.cu -d): "
@@ -318,9 +317,6 @@ def _run_plan(args, dev, dtype) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.scaling:
-        print(f"error: {NOT_PORTED['scaling']}", file=sys.stderr)
-        return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA card found; pass -d cpu to run the kernels' "
               "plain versions on the CPU", file=sys.stderr)
@@ -330,6 +326,11 @@ def main(argv=None) -> int:
                         force_format=args.force_format,
                         truncate_rows_to_tile=args.truncate_rows)
 
+    if args.scaling:
+        scaling_sweep(_load(args.matrix or "mixed_medium"), config=config,
+                      devices=run_devices(dev), warmup=args.warmup,
+                      reps=args.reps, iters=args.iters)
+        return 0
     if args.sweep:
         sweep(config=config, compute_dtype=dtype, csv_path=args.csv or None,
               device=dev, backend=args.backend, iters_per_rep=args.iters,

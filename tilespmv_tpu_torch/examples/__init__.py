@@ -1,2 +1,3 @@
 """Iterative solvers with TileSpMV as the operator: conjugate gradient
-(`cg`) and PageRank (`pagerank`)."""
+(`cg`) and PageRank (`pagerank`); and the multi-device walkthrough
+(`distributed_run`)."""
