@@ -184,17 +184,51 @@ Phases, each fatal on failure:
    `examples.distributed_run.main(quick=True)` passes. Virtual shards
    run one after another on the card: the times measure what
    partitioning costs, not scaling. The phase's seconds are printed.
+14. multi-process and routing — (a) `parallel.launch.spawn` starts
+   worker processes (this script with --phase14-worker) that join one
+   process group by `initialize_multihost` (a file:// rendezvous) and
+   build phase 13's 4-position layout over it: on one card 2 processes
+   x 2 virtual shards of cuda:0 over gloo (nccl refuses two ranks on
+   one card; gloo takes the CUDA tensors and copies them through host
+   memory itself), one process per card over nccl where
+   two cards are visible; then a world of 1 over nccl (4 shards of the
+   card), which runs nccl's all-gather, all-to-all and all-reduce.
+   Operators: `DistributedSpMV` in f32 (allgather on mixed_large and
+   powerlaw_large, halo and auto on banded_large), mixed_large in f64
+   and bf16 (allgather), `DistributedSpMV2D` on mixed_large at (2, 2)
+   (rows are processes: psum within each) and, with two processes, at
+   (1, 4) (psum across them by all_reduce); the nccl world of 1 runs
+   mixed_large allgather, banded_large halo and mixed_large (2, 2).
+   Each worker resets the launch counters just before its first op(x);
+   every class kernel its shard plans hold must launch, y must pass
+   phase 3's gates (f32), phase 8's 1e-12 (f64) or phase 11's 2^-8
+   (bf16), and lie within KERNEL_TOL (f64: KERNEL_TOL_F64; bf16: one
+   bf16 rounding, 2^-8 |y|, more) times max(1, max|y|) of phase 13's
+   one-process y on the same layout ((1, 4): phase 3's y). Printed per
+   operator: the backend, world size and positions, each process's
+   build seconds and plan MB, its launches per kernel, the errors, and
+   the slowest process's eager ms per call (bench/scaling.py::time_op)
+   beside phase 13's one-process eager ms. On one card over gloo this
+   measures host copies and process overhead, not scaling. A worker
+   that fails, or outlives its time limit, fails the run. (b)
+   mixed_large planned under ROUTE_MODE "model" and under each
+   ROUTE_FORCE_THETA 0..len(W_CHOICES): each plan's class kernels must
+   launch and y pass phase 3's gates; its classes and graph ms are
+   printed beside the fixed arm's. The phase's seconds are printed.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
 ms, plain_ms, bound_ms and bound_by, library_ms, share of bound; a
 "forced" list per kernel: plan, error, ms and the automatic plan's ms;
 "distributed_launches": the SpMV kernels' launches over phase 13's
-main-path calls) with an "xla" entry per matrix (ms and eager_ms at
+main-path calls; "multiprocess_launches": over phase 14's, summed over
+its workers) with an "xla" entry per matrix (ms and eager_ms at
 tile sizes 16 and 8, the lane plan's, cuSPARSE's, conversion and
 planning seconds) and a "distributed" entry per matrix (per operator:
 ms, eager ms, the single-device operator's, error, traffic_ratio,
-exchanged bytes; the sweep's points), then the last line
+exchanged bytes; the sweep's points), a "multiprocess" list (phase 14
+(a), per operator and world) and a "routing" entry (phase 14 (b)), then
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
 """
@@ -293,6 +327,17 @@ XLA_BF16_RTOL, XLA_BF16_ATOL = 2.0 ** -6, 1e-3
 MTX = "tests/fixtures/bcsstk_style_sym.mtx"
 # phase 13's mesh: this many virtual shards of the one card
 VIRTUAL_SHARDS = 4
+# phase 14's worlds: (matrix, x mode or 2-D grid, dtype) per operator
+MP_SPECS = [("mixed_large", "allgather", "f32"),
+            ("powerlaw_large", "allgather", "f32"),
+            ("banded_large", "halo", "f32"), ("banded_large", "auto", "f32"),
+            ("mixed_large", "allgather", "f64"),
+            ("mixed_large", "allgather", "bf16"),
+            ("mixed_large", "2d", "f32"), ("mixed_large", "2d_1x4", "f32")]
+NCCL1_SPECS = [("mixed_large", "allgather", "f32"),
+               ("banded_large", "halo", "f32"), ("mixed_large", "2d", "f32")]
+# seconds a phase-14 world may take, build included
+MP_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -1581,8 +1626,9 @@ def dist_shards_line(op) -> str:
 def distributed_phase(dev, card, csrs, ys, ops, ops64) -> tuple:
     """Phase 13 (see the module doc); `ys` and `ops` are phase 3's f32 y
     and phase 2's operators, `ops64` phase 8's. Returns the JSON line's
-    "distributed" entry and the class kernels' launches summed over the
-    phase's main-path calls."""
+    "distributed" entry, the class kernels' launches summed over the
+    phase's main-path calls, and each operator's y on the host by its
+    label."""
     import collections
     import torch
     from tilespmv_tpu_torch import TileConfig, TileSpMV
@@ -1601,6 +1647,7 @@ def distributed_phase(dev, card, csrs, ys, ops, ops64) -> tuple:
     launched = collections.Counter()
     out = {n: {} for n in FLAGSHIP}
     single = {}
+    kept = {}
 
     def single_ms(n, dt):
         """Graph and eager ms of the single-device operator."""
@@ -1632,6 +1679,7 @@ def distributed_phase(dev, card, csrs, ys, ops, ops64) -> tuple:
         launched.update(cnt)
         if y.device != dev:
             raise AssertionError(f"{label}: y on {y.device}")
+        kept[label] = y.cpu()
         ref = golden(csr, x)
         if dt == f32:
             yc = y.cpu().numpy()
@@ -1735,11 +1783,232 @@ def distributed_phase(dev, card, csrs, ys, ops, ops64) -> tuple:
     log(f"distributed_run.main(quick=True): error {err:.3e}")
     log(f"phase 13 (multi-device, {VIRTUAL_SHARDS} virtual shards): "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
-    return out, launched
+    return out, launched, kept
+
+
+def mp_label(n: str, mode: str, dt: str) -> str:
+    """Phase 13's label of an operator (phase 14 (a) keeps it)."""
+    return f"distributed {n} {mode} {dt}"
+
+
+def mp_worker(out_dir: str, init: str, backend: str) -> int:
+    """One process of a phase-14 world (see the module doc): builds the
+    operators of its world on its own shards, checks each against the
+    gates and phase 13's y (saved by the parent in `out_dir`), times it,
+    and writes its results to out_dir/rank<r>.json. Raises on any
+    failure, which the parent's spawn turns into a failed run."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    from tilespmv_tpu_torch.bench.scaling import time_op
+    from tilespmv_tpu_torch.io import generate
+    from tilespmv_tpu_torch.ops.cuda import build, kernels
+    from tilespmv_tpu_torch.parallel import (DistributedSpMV,
+                                             DistributedSpMV2D, make_mesh,
+                                             make_mesh2d)
+    from tilespmv_tpu_torch.parallel.mesh import (initialize_multihost,
+                                                  local_rank)
+    out_dir = pathlib.Path(out_dir)
+    initialize_multihost(init, backend=backend)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", local_rank())
+    torch.cuda.set_device(dev)
+    build.load()
+    shards = [dev] * (VIRTUAL_SHARDS // world)
+    dtypes = {"f32": torch.float32, "f64": torch.float64,
+              "bf16": torch.bfloat16}
+    specs = NCCL1_SPECS if world == 1 else MP_SPECS
+    csrs = {n: generate.get_matrix(n) for n in {s[0] for s in specs}}
+    results = []
+    for n, mode, dt in specs:
+        csr, label = csrs[n], mp_label(n, mode, dt)
+        t0 = time.perf_counter()
+        if mode.startswith("2d"):
+            grid = (1, 4) if mode == "2d_1x4" else (2, 2)
+            op = DistributedSpMV2D(csr, mesh=make_mesh2d(
+                *grid, devices=shards), dtype=dtypes[dt])
+        else:
+            op = DistributedSpMV(csr, mesh=make_mesh(devices=shards),
+                                 x_mode=mode, dtype=dtypes[dt])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        x = bench_x(csr.n)
+        xin = x.astype(np.float64) if dt == "f64" else x
+        kernels.reset_launch_counts()
+        y = op(xin)
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        want = dist_kernel_names(op)
+        missing = sorted(k for k in want if not cnt[k])
+        if missing:
+            raise AssertionError(f"rank {rank} {label}: {missing} never "
+                                 f"launched ({cnt})")
+        ref = golden(csr, x)
+        if dt == "f32":
+            gate(f"rank {rank} {label}", y.cpu().numpy(), ref)
+        elif dt == "f64":
+            gate64(f"rank {rank} {label}", csr, y.cpu().numpy(), xin)
+        else:
+            gate_bf16(f"rank {rank} {label}", y, ref)
+        # phase 13's one-process y on the same layout ((1, 4): phase 3's)
+        y1 = np.load(out_dir / ((f"single {n}" if mode == "2d_1x4"
+                                 else label) + ".npy"))
+        yh = y.float().cpu().numpy() if dt == "bf16" else y.cpu().numpy()
+        tol = KERNEL_TOL_F64 if dt == "f64" else KERNEL_TOL
+        diff = np.abs(yh.astype(np.float64) - y1)
+        slack = (BF16_GOLD_RTOL * np.abs(y1) if dt == "bf16"
+                 else np.zeros_like(y1))
+        bound = tol * max(1.0, float(np.abs(y1).max()))
+        if not np.all(diff <= slack + bound):
+            raise AssertionError(f"rank {rank} {label}: max |y - phase 13 "
+                                 f"y| {diff.max():.3e} over the bound")
+        eager, _ = time_op(op, x, warmup=2, reps=5, iters=20)
+        results.append(dict(
+            label=label, backend=backend, world=world,
+            positions=op.mesh.size, build_s=build_s,
+            plan_mb=sum(sh.summary["plan_mbytes"] for sh in
+                        op.shards + (getattr(op, "foreign_shards", None)
+                                     or [])),
+            launches={k: v for k, v in cnt.items() if v},
+            want=sorted(want), err=float(diff.max()), bound=bound,
+            eager_ms=eager))
+        del op
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+    return 0
+
+
+def multiprocess_phase(dev, card, repo, csrs, ys, kept, dist13) -> tuple:
+    """Phase 14 (a) (see the module doc); `ys` is phase 3's f32 y, `kept`
+    phase 13's ys by label and `dist13` its JSON entry. Returns the JSON
+    line's "multiprocess" list and the class kernels' launches summed
+    over the workers' main-path calls."""
+    import collections
+    import tempfile
+    import torch
+    from tilespmv_tpu_torch.parallel.launch import spawn
+    launched = collections.Counter()
+    runs = ([("nccl", 2, None)] if torch.cuda.device_count() >= 2
+            else [("gloo", 2, lambda r: 0)]) + [("nccl", 1, lambda r: 0)]
+    entries = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for n in FLAGSHIP:
+            np.save(tmp / f"single {n}.npy", ys[n].cpu().numpy())
+        for label, y in kept.items():
+            np.save(tmp / f"{label}.npy", y.float().numpy()
+                    if y.dtype == torch.bfloat16 else y.numpy())
+        for backend, world, lrank in runs:
+            wdir = tmp / f"{backend}{world}"
+            wdir.mkdir()
+            for f in tmp.glob("*.npy"):
+                (wdir / f.name).symlink_to(f)
+            t0 = time.perf_counter()
+            spawn([sys.executable, str(repo / "chip_smoke.py"),
+                   "--phase14-worker", str(wdir),
+                   (wdir / "store").as_uri(), backend], world,
+                  timeout=MP_TIMEOUT, local_rank=lrank, cwd=str(repo))
+            wall = time.perf_counter() - t0
+            per = [json.loads((wdir / f"rank{r}.json").read_text())
+                   for r in range(world)]
+            one_card = backend == "gloo"
+            log(f"multiprocess world of {world} over {backend}: "
+                f"{wall:.1f} s wall, start and build included [{card}]")
+            for ops in zip(*per):
+                r0 = ops[0]
+                n, mode, dt = r0["label"].split()[1:]
+                e13 = (None if mode == "2d_1x4" else
+                       dist13[n][f"{mode}_{dt}"]["eager_ms"])
+                errs = [f"{r['err']:.3e}" for r in ops]
+                for r in ops:
+                    launched.update(r["launches"])
+                log(f"multiprocess {r0['label']}: backend {backend}, "
+                    f"world {world}, {r0['positions']} positions "
+                    f"({r0['positions'] // world} a process)"
+                    + ("; gloo copies the CUDA tensors of its "
+                       "collectives through host memory" if one_card else "")
+                    + f"; build s {[round(r['build_s'], 2) for r in ops]}, "
+                    f"plan MB {[round(r['plan_mb'], 2) for r in ops]}; "
+                    f"launches {[r['launches'] for r in ops]}; gates ok, "
+                    f"max |y - {'phase 3' if e13 is None else 'phase 13'} "
+                    f"y| {errs} (bound "
+                    f"{r0['bound']:.3e}); slowest process eager "
+                    f"{r0['eager_ms']:.4f} ms"
+                    + ("" if e13 is None else
+                       f" vs phase 13 one-process eager {e13:.4f} ms")
+                    + (" (one card over gloo: host copies and process "
+                       "overhead, not scaling)" if one_card else "")
+                    + f" [{card}]")
+                entries.append(dict(
+                    label=r0["label"], backend=backend, world=world,
+                    positions=r0["positions"], eager_ms=r0["eager_ms"],
+                    phase13_eager_ms=e13,
+                    build_s=[r["build_s"] for r in ops],
+                    plan_mb=[r["plan_mb"] for r in ops],
+                    launches=[r["launches"] for r in ops],
+                    max_abs_err=[r["err"] for r in ops], wall_s=wall))
+    return entries, launched
+
+
+def routing_phase(dev, card, csrs, ops) -> dict:
+    """Phase 14 (b) (see the module doc): the JSON line's "routing"
+    entry."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.core.convert import tile_create
+    from tilespmv_tpu_torch.ops.cuda import kernels, lane_plan
+    from tilespmv_tpu_torch.utils.profiling import graph_ms
+    n = "mixed_large"
+    csr = csrs[n]
+    x = torch.from_numpy(bench_x(csr.n)).to(dev)
+    ref = golden(csr, bench_x(csr.n))
+    tm = tile_create(csr)
+
+    def classes(op) -> str:
+        return " ".join(f"{c['kind']}:{c.get('chunks', c.get('slabs'))}"
+                        for c in op.summary["classes"])
+
+    fixed_ms = graph_ms(lambda: ops[n](x))
+    out = {"fixed": dict(ms=fixed_ms, classes=classes(ops[n]))}
+    arms = [("model", "model", None)] + [
+        (f"theta {t}", "fixed", t) for t in range(len(lane_plan.W_CHOICES)
+                                                 + 1)]
+    for label, mode, theta in arms:
+        old = lane_plan.ROUTE_MODE, lane_plan.ROUTE_FORCE_THETA
+        try:
+            lane_plan.ROUTE_MODE, lane_plan.ROUTE_FORCE_THETA = mode, theta
+            t0 = time.perf_counter()
+            plan = lane_plan.build_lane_plan(tm)
+            plan_s = time.perf_counter() - t0
+        finally:
+            lane_plan.ROUTE_MODE, lane_plan.ROUTE_FORCE_THETA = old
+        op = TileSpMV.from_plan(plan, device=dev)
+        kernels.reset_launch_counts()
+        y = op(x)
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        cl = class_lists(op.device_plan())
+        missing = [k for k in ("band", "dense", "sparse", "stream")
+                   if cl[k] and not cnt[k]]
+        if missing:
+            raise AssertionError(f"routing {label}: {missing} never "
+                                 f"launched ({cnt})")
+        gate(f"routing {n} {label}", y.cpu().numpy(), ref)
+        ms = graph_ms(lambda: op(x))
+        out[label] = dict(ms=ms, classes=classes(op), plan_s=plan_s)
+        log(f"routing {n} {label}: classes {classes(op)}; launches "
+            f"{json.dumps({k: v for k, v in cnt.items() if v})}; gates "
+            f"ok; plan {plan_s:.2f} s; {ms:.4f} ms (graph replay) vs the "
+            f"fixed arm's {fixed_ms:.4f} ms ({out['fixed']['classes']}) "
+            f"[{card}]")
+        del op
+    return out
 
 
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--phase14-worker"]:
+        return mp_worker(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1858,7 +2127,8 @@ def main() -> int:
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
     # 13. the multi-device layer on virtual shards of the card
-    dist, dist_launches = distributed_phase(dev, card, csrs, ys, ops, ops64)
+    dist, dist_launches, kept = distributed_phase(dev, card, csrs, ys, ops,
+                                                  ops64)
     for r in results:
         if r["name"] in KERNELS or r["name"] in F64_KERNELS \
                 or r["name"] in BF16_KERNELS:
@@ -1868,7 +2138,25 @@ def main() -> int:
         if not dist_launches[k]:
             raise AssertionError(f"phase 13: kernel {k} never launched")
 
-    log(json.dumps({"kernels": results, "xla": xla, "distributed": dist}))
+    # 14. one process per shard group over a process group, and the
+    # planner's routing arms
+    t_phase = time.perf_counter()
+    mp, mp_launches = multiprocess_phase(dev, card, repo, csrs, ys, kept,
+                                         dist)
+    del kept
+    for r in results:
+        if "distributed_launches" in r:
+            r["multiprocess_launches"] = mp_launches[r["name"]]
+    for k in ("band", "dense", "sparse", "stream", "dense_f64",
+              "stream_f64", "dense_bf16", "sparse_bf16", "stream_bf16"):
+        if not mp_launches[k]:
+            raise AssertionError(f"phase 14: kernel {k} never launched")
+    routing = routing_phase(dev, card, csrs, ops)
+    log(f"phase 14 (multi-process and routing): "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    log(json.dumps({"kernels": results, "xla": xla, "distributed": dist,
+                    "multiprocess": mp, "routing": routing}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,6 +16,13 @@ so, one card included, to compare like with like. On the CPU a
 `time.perf_counter` loop. Virtual shards on one card run one
 after another, so a sweep there measures what partitioning costs (more
 launches, smaller classes, x copies), not scaling.
+
+On a mesh that spans processes (`parallel.mesh.initialize_multihost`)
+every process times its own calls, eagerly (events on its card, or the
+CPU clock), each rep starting after an all_reduce that every process
+must reach, and the slowest process's time counts (all_reduce MAX). A
+sweep then runs each count below the world's positions on a sub-mesh of
+the first processes while the others wait, and only process 0 prints.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import torch
 from ..config import DEFAULT_CONFIG, TileConfig
 from ..io.mmio import CSRMatrix
 from ..parallel import DistributedSpMV, make_mesh
+from ..parallel.mesh import process_broadcast, process_reduce
 from .harness import _reps_cuda
 
 
@@ -67,13 +75,40 @@ def _events_ms(op, x: torch.Tensor, devs: list, warmup: int, reps: int,
     return out
 
 
+def _process_ms(op, x: torch.Tensor, warmup: int, reps: int,
+                iters: int) -> list:
+    """ms per call, per rep, of `iters` eager calls on a mesh that spans
+    processes: the slowest process's time (see the module doc)."""
+    mesh = op.mesh
+    cards = sorted({d for d in mesh.local_devices() if d.type == "cuda"},
+                   key=str)
+    for _ in range(warmup):
+        op(x)
+    out = []
+    for _ in range(reps):
+        for d in cards:
+            torch.cuda.synchronize(d)
+        process_reduce([0.0], mesh)
+        if cards:
+            out.append(_events_ms(op, x, cards, 0, 1, iters)[0])
+            continue
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            op(x)
+        out.append((time.perf_counter() - t0) * 1e3 / iters)
+    return process_reduce(out, mesh, op="max")
+
+
 def time_op(op, x, warmup: int = 2, reps: int = 5, iters: int = 20,
             graph: bool = True) -> tuple[float, float]:
     """(ms, eager_ms) per call of a distributed operator (see the module
     doc), medians over `reps`; `graph` False times a one-card mesh
     eagerly too."""
-    devs = op.mesh.flat()
+    devs = op.mesh.local_devices()
     xt = torch.as_tensor(x, dtype=op.dtype, device=devs[0])
+    if op.mesh.multiprocess:
+        e = statistics.median(_process_ms(op, xt, warmup, reps, iters))
+        return e, e
     kinds = {d.type for d in devs}
     cards = sorted(set(devs), key=str)
     if kinds == {"cuda"} and graph and len(cards) == 1:
@@ -108,10 +143,13 @@ def scaling_sweep(csr: CSRMatrix,
                   iters: int = 20) -> list[ScalePoint]:
     """Throughput at each device count (powers of two up to the
     devices of `devices`, default the visible cards, by default), in
-    f32 with x = (i % 10) / 4 as the reference's. Work is fixed."""
-    every = make_mesh(devices=devices).flat()
+    f32 with x = (i % 10) / 4 as the reference's. Work is fixed. In a
+    process group every process calls it, `devices` being its own (see
+    the module doc), and every process returns process 0's points."""
+    whole = make_mesh(devices=devices)
+    every = whole.flat()
     total = len(every)
-    graph = len(set(every)) == 1
+    graph = len(set(every)) == 1 and not whole.multiprocess
     if device_counts is None:
         device_counts = [d for d in (1, 2, 4, 8, 16, 32, 64) if d <= total]
     device_counts = list(device_counts)
@@ -121,10 +159,16 @@ def scaling_sweep(csr: CSRMatrix,
     base = None
     for nd in device_counts:
         mesh = make_mesh(nd, devices=devices)
-        op = DistributedSpMV(csr, mesh=mesh, config=config,
-                             x_mode=x_mode if nd > 1 else "replicated")
-        ms, eager = time_op(op, x, warmup=warmup, reps=reps, iters=iters,
-                            graph=graph)
+        ms = eager = float("nan")
+        mode = None
+        if mesh.local():
+            op = DistributedSpMV(csr, mesh=mesh, config=config,
+                                 x_mode=x_mode if nd > 1 else "replicated")
+            ms, eager = time_op(op, x, warmup=warmup, reps=reps,
+                                iters=iters, graph=graph)
+            mode = op.x_mode
+        # process 0 times every count; the others wait here
+        ms, eager, mode = process_broadcast((ms, eager, mode), whole)
         dt = max(ms, 1e-9) / 1e3
         gf = flops / dt / 1e9
         if base is None:
@@ -132,14 +176,23 @@ def scaling_sweep(csr: CSRMatrix,
         eff = (base[1] / dt) * (base[0] / nd)
         out.append(ScalePoint(n_devices=nd, ms=ms, gflops=gf,
                               efficiency=eff, eager_ms=eager))
-        if verbose:
-            where = ("virtual shards on one " + mesh.flat()[0].type
-                     + " device: the cost of partitioning, not scaling"
-                     if mesh.is_virtual() else
-                     ", ".join(sorted({str(d) for d in mesh.flat()})))
-            if not graph and mesh.flat()[0].type == "cuda":
-                where += "; eager, by events on each card"
+        if verbose and whole.rank == 0:
             print(f"devices={nd:3d}: {ms:8.4f} ms  {gf:8.2f} GFLOPS  "
                   f"efficiency={eff:.2f}  eager {eager:.4f} ms  "
-                  f"x_mode={op.x_mode}  [{where}]", flush=True)
+                  f"x_mode={mode}  [{_where(mesh, graph)}]", flush=True)
     return out
+
+
+def _where(mesh, graph: bool) -> str:
+    """What a sweep line measured."""
+    if mesh.multiprocess:
+        return (f"{mesh.processes} process(es) over {mesh.backend()}, "
+                f"{mesh.size // mesh.processes} position(s) each; eager, "
+                "the slowest process")
+    if mesh.is_virtual():
+        return ("virtual shards on one " + mesh.flat()[0].type
+                + " device: the cost of partitioning, not scaling")
+    where = ", ".join(sorted({str(d) for d in mesh.flat()}))
+    if not graph and mesh.flat()[0].type == "cuda":
+        where += "; eager, by events on each card"
+    return where

@@ -13,6 +13,8 @@ Usage:
     python -m tilespmv_tpu_torch.cli [options] <matrix.mtx | corpus-name>
     python -m tilespmv_tpu_torch.cli --sweep    # whole synthetic corpus
     python -m tilespmv_tpu_torch.cli --scaling [matrix]  # over devices
+    torchrun --standalone --nproc-per-node N -m tilespmv_tpu_torch.cli \
+        --scaling [matrix]     # a process per card (gloo with -d cpu)
 
 Without a CUDA card it fails unless given `-d cpu`; it never falls back
 to the CPU by itself.
@@ -40,7 +42,7 @@ from .core.serialize import (load_lane_plan, load_tile_matrix,
 from .io import generate, mmio
 from .ops.cpu_reference import spmv_cpu
 from .ops.spmv import TileSpMV
-from .parallel.mesh import run_devices
+from .parallel.mesh import initialize_multihost, run_devices
 from .utils.profiling import profile_engines
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64,
@@ -76,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="strong-scaling sweep over the device mesh "
                         "(mixed_medium by default): the visible cards, "
                         "four virtual shards of a lone card, or with -d "
-                        "cpu eight virtual CPU devices")
+                        "cpu eight virtual CPU devices; started by "
+                        "torchrun, one process per card (its card, or "
+                        "eight CPU devices each with -d cpu)")
     p.add_argument("-d", "--device", default="cuda",
                    choices=["cuda", "cpu"],
                    help="where the operator runs (reference main.cu -d): "
@@ -327,9 +331,20 @@ def main(argv=None) -> int:
                         truncate_rows_to_tile=args.truncate_rows)
 
     if args.scaling:
-        scaling_sweep(_load(args.matrix or "mixed_medium"), config=config,
-                      devices=run_devices(dev), warmup=args.warmup,
-                      reps=args.reps, iters=args.iters)
+        devices = run_devices(dev)
+        if "WORLD_SIZE" in os.environ:
+            # started by torchrun: this process's card, or its eight
+            # virtual CPU devices
+            initialize_multihost(backend="gloo" if dev == "cpu" else "nccl")
+            devices = devices if dev == "cpu" else None
+        try:
+            scaling_sweep(_load(args.matrix or "mixed_medium"),
+                          config=config, devices=devices,
+                          warmup=args.warmup, reps=args.reps,
+                          iters=args.iters)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
         return 0
     if args.sweep:
         sweep(config=config, compute_dtype=dtype, csv_path=args.csv or None,

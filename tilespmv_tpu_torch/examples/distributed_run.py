@@ -7,6 +7,12 @@ another, so the sweep then measures what partitioning costs); with
 device="cpu" on eight virtual CPU devices, the reference's test mesh.
 
     python -m tilespmv_tpu_torch.examples.distributed_run
+
+This walkthrough drives every card from one process. For one process
+per card or host, call `parallel.mesh.initialize_multihost(...)` first
+in every process (or start them with torchrun), then build the meshes
+and operators as here: `make_mesh()` then spans every process's card
+(see tilespmv_tpu_torch/scripts/multiprocess_dryrun.py).
 """
 import numpy as np
 

@@ -50,7 +50,11 @@ geometry).
 
 The routing and chunking cost constants are the reference planner's
 (measured on its own device). They are kept unchanged so the plans stay
-identical; re-fitting them to the H100 is later work.
+identical; re-fitting them to the H100 is later work. So are its
+routing globals, which callers set on this module: ROUTE_MODE ("fixed"
+or the cost-model arm "model"), ROUTE_FORCE_THETA (force "densify from
+band theta up") and ROUTE_SAMPLE_TILES; LAST_ABSORB_ESTIMATE holds the
+last COO absorb-vs-stream estimate pair.
 """
 from __future__ import annotations
 
@@ -106,6 +110,9 @@ COO_SPARSE_MIN_AVG = 4.0
 # window-sparse COO populations leave the stream engine when the absorb
 # estimate beats the stream estimate by this factor
 STREAM_ABSORB_MARGIN = 0.7
+# the last (absorb_ns, stream_ns) pair of build_lane_plan's COO routing
+# decision, for observability (read by tests and calibration scripts)
+LAST_ABSORB_ESTIMATE = None
 # f64 plans densify a (window, round) tile group only when it fills this
 # many of a chunk's lanes; deeper tiles run as stream entries
 DF64_ROUND_FILL_MIN = 12
@@ -136,6 +143,20 @@ COST = dict(
     sparse_chunk_ns=120.0,  # per sparse chunk: prefix + decode
     sparse_slot_ns=1.3,     # per value slot
 )
+# routing of the non-band tiles between the dense class and the
+# W-classes: "fixed" applies the DENSE_MIN_NNZ threshold, "model" keeps
+# the cheapest "densify from band theta up" candidate under COST. A plan
+# built with force_t always routes fixed, so that the shard plans of the
+# distributed layer never route apart. The default stays "fixed", as the
+# reference's: COST is fitted to the reference's device, not to the
+# H100 (scripts/calibrate_cost.py measures the forced routings).
+ROUTE_MODE = "fixed"
+# calibration hook: densify the bands >= theta whatever the mode; None
+# = off
+ROUTE_FORCE_THETA = None
+# above this many tiles the model arm costs each candidate on a 1-in-8
+# sample of the row windows
+ROUTE_SAMPLE_TILES = 200_000
 
 
 def sparse_meta_rows(width: int) -> int:
@@ -573,15 +594,68 @@ def _sparse_cost(str_, stc, width: int, tilem: int) -> float:
         COST["sparse_chunk_ns"] + width * COST["sparse_slot_ns"])
 
 
-def _route_classes(counts: np.ndarray) -> np.ndarray:
-    """Assign each non-band tile to the dense class or a W class by the
-    fixed DENSE_MIN_NNZ threshold. Returns widx in [0, len(W_CHOICES)];
-    len(W_CHOICES) = dense. The reference's default routing mode is this
-    fixed one, and its `fixed=True` (set by force_t) picks it too, so
-    the port has no other mode to choose."""
-    widx = np.searchsorted(np.asarray(W_CHOICES), counts + 1)
-    widx[counts >= DENSE_MIN_NNZ] = len(W_CHOICES)
-    return _merge_thin_classes(widx)
+def _dense_cost(dtr, dtc, tilem: int) -> float:
+    t = _pick_t(dtr, dtc, tilem)
+    cbytes = (16 * 16 * t + DENSE_MROWS * t) * 4
+    kp = _pick_k(dtr, dtc, t)
+    cb = _pick_cb(dtr, dtc, tilem, t, kp, cbytes)
+    kp = _pick_k(dtr, dtc, cb * t)
+    return _est_class_cost(dtr, dtc, t, kp, cb, cbytes,
+                           16 * 16 * t * COST["vpu_ns_per_el"])
+
+
+def _route_classes(trow, tcol, counts, tilem: int,
+                   fixed: bool = False) -> np.ndarray:
+    """Assign each non-band tile to the dense class or a W class.
+    Returns widx in [0, len(W_CHOICES)]; len(W_CHOICES) = dense.
+
+    ROUTE_FORCE_THETA, when set, densifies every band from it up. The
+    fixed arm (ROUTE_MODE "fixed", or `fixed`, which force_t sets)
+    densifies the tiles of DENSE_MIN_NNZ entries or more. The model arm
+    costs every "densify from band theta up" candidate with COST and
+    keeps the cheapest (a candidate must win by 1%); above
+    ROUTE_SAMPLE_TILES tiles it costs a 1-in-8 sample of the row
+    windows, each band merged as in the whole population."""
+    nb = len(W_CHOICES)
+    band_idx = np.searchsorted(np.asarray(W_CHOICES), counts + 1)
+    if ROUTE_FORCE_THETA is not None:
+        widx = np.where(band_idx >= ROUTE_FORCE_THETA, nb, band_idx)
+        return _merge_thin_classes(widx)
+    if fixed or ROUTE_MODE == "fixed" or counts.size == 0:
+        widx = band_idx.copy()
+        widx[counts >= DENSE_MIN_NNZ] = nb
+        return _merge_thin_classes(widx)
+
+    etr, etc_, ebi = trow, tcol, band_idx
+    if counts.size > ROUTE_SAMPLE_TILES:
+        sm = (trow // ROW_WINDOW) % 8 == 0
+        if sm.any():
+            etr, etc_, ebi = trow[sm], tcol[sm], band_idx[sm]
+
+    best_widx, best_cost = None, None
+    for theta in range(nb + 1):
+        wfull = _merge_thin_classes(np.where(band_idx >= theta, nb,
+                                             band_idx))
+        # each band's merged class, from the whole population (a sample
+        # must cost the real merge, not re-derive it at 1/8 scale)
+        target = np.full(nb + 1, nb, np.int64)
+        for b_ in range(min(theta, nb)):
+            sel_b = np.nonzero(band_idx == b_)[0]
+            if sel_b.size:
+                target[b_] = wfull[sel_b[0]]
+        weval = target[ebi]
+        cost = 0.0
+        dm = weval >= nb
+        if dm.any():
+            cost += _dense_cost(etr[dm], etc_[dm], tilem)
+        for k in range(nb):
+            sm_k = weval == k
+            if sm_k.any():
+                cost += _sparse_cost(etr[sm_k], etc_[sm_k], W_CHOICES[k],
+                                     tilem)
+        if best_cost is None or cost < best_cost * 0.99:
+            best_widx, best_cost = wfull, cost
+    return best_widx
 
 
 def _pick_t(trow: np.ndarray, tcol: np.ndarray, tilem: int) -> int:
@@ -945,6 +1019,8 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32,
             stream_ns, a_span, a_dual = _coo_stream_cost_ns(g_r, g_c, tm.m)
             ctc0 = tm.tile_columnidx[bk.tile_ids].astype(np.int64)
             absorb_ns = _coo_absorb_cost_ns(ctr0, ctc0, ccounts0, tm.tilem)
+            global LAST_ABSORB_ESTIMATE
+            LAST_ABSORB_ESTIMATE = (absorb_ns, stream_ns)
             if absorb_ns < STREAM_ABSORB_MARGIN * stream_ns:
                 use_stream = False
             else:
@@ -1017,7 +1093,8 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32,
                 er, ec, ev = er[~edeep], ec[~edeep], ev[~edeep]
         widx = np.full(counts.shape, len(W_CHOICES), np.int64)
     else:
-        widx = _route_classes(counts)
+        widx = _route_classes(trow, tcol, counts, tm.tilem,
+                              fixed=force_t is not None)
     dense_mask = widx >= len(W_CHOICES)
 
     entry_owner = np.repeat(np.arange(trow.shape[0]), counts)

@@ -7,7 +7,7 @@ Port of tilespmv_tpu/parallel/distributed.py, the 1-D row partition:
   `TileSpMV` on its mesh device (`TileSpMV.from_plan`), which runs the
   class kernels on the card (their plain versions on the CPU);
 * shard plans take the reference's shard-uniform planner options
-  (`_plan_blocks`): the dense chunk width pinned, one stream decision
+  (`shard_ops`): the dense chunk width pinned, one stream decision
   for all shards from the COO entries summed over them;
 * x reaches the shards by one of the reference's `x_mode`s:
   "replicated" (x copied to every shard), "allgather" (x sharded, then
@@ -18,6 +18,15 @@ Port of tilespmv_tpu/parallel/distributed.py, the 1-D row partition:
   less than 0.75 of an all-gather's bytes, allgather otherwise);
 * y's row blocks each stay on their shard (`shard_outputs`) or come
   back as one y on the first mesh device (`op(x)`).
+
+On a mesh that spans processes (`mesh.initialize_multihost`), every
+process runs the same program with the whole CSR and the whole x, as
+every process of the reference does: it converts and plans only the
+blocks it owns (the halo plan, whose packet layout every process must
+agree on, is made from the whole CSR everywhere), the stream decision
+sums the COO entries over the processes, `shard_outputs` gives this
+process's row blocks, and `op(x)` the whole y on this process's first
+device, by one all-gather of the equal row blocks.
 
 The reference pads every shard's plan to one shape (its
 `_unify_plans` / `_unify_lane_plans`), because `shard_map` runs one SPMD
@@ -45,7 +54,8 @@ from ..io.mmio import CSRMatrix
 from ..ops.cuda.lane_plan import STREAM_MIN_ENTRIES, build_lane_plan
 from ..ops.plan import build_plan
 from ..ops.spmv import BACKENDS, TileSpMV
-from .mesh import Mesh, all_gather, all_to_all, make_mesh, on
+from .mesh import (Mesh, all_gather, all_to_all, gather, make_mesh, on,
+                   process_reduce)
 
 X_MODES = ("allgather", "replicated", "halo", "auto")
 XB = 128  # x values per halo block
@@ -146,37 +156,36 @@ def _plan_halo(blocks: list, n: int, ndev: int) -> HaloPlan:
                     foreign_blocks=foreign_blocks)
 
 
-def _global_use_stream(tile_matrices) -> bool:
-    """The reference's one stream decision for all shards: the COO
-    entries summed over them reach STREAM_MIN_ENTRIES."""
-    coo_total = sum(int(tm.coo.val.shape[0]) if tm.coo.num_tiles else 0
-                    for tm in tile_matrices)
-    return coo_total >= STREAM_MIN_ENTRIES
-
-
-def _plan_blocks(tile_matrices, backend: str, dtype: torch.dtype) -> list:
-    """Per-shard plans with the reference's shard-uniform options
-    (shared by the 1-D and 2-D partitions): force_t pins the chunk
-    shapes, the stream decision is global, s_batch 8 and span 64."""
-    cdt = str(dtype).removeprefix("torch.")
-    if backend == "pallas":
-        use_stream = _global_use_stream(tile_matrices)
-        return [build_lane_plan(tm, compute_dtype=cdt, force_t=128,
-                                use_stream=use_stream, stream_s_batch=8,
-                                stream_span_rows=64)
-                for tm in tile_matrices]
-    return [build_plan(tm, compute_dtype=cdt) for tm in tile_matrices]
+def global_counts(groups: list, backend: str, mesh: Mesh) -> tuple:
+    """(the reference's one stream decision for all shards of each group
+    of tile matrices: the group's COO entries, summed over every
+    process's shards, reach STREAM_MIN_ENTRIES; None on the xla
+    backend), and the entries stored by all of them. One all_reduce
+    over the mesh's processes gives both."""
+    counts = [sum(int(tm.coo.val.shape[0]) if tm.coo.num_tiles else 0
+                  for tm in tms) for tms in groups]
+    counts.append(sum(tm.nnz for tms in groups for tm in tms))
+    *coo, nnz = process_reduce(counts, mesh)
+    return ([c >= STREAM_MIN_ENTRIES if backend == "pallas" else None
+             for c in coo], int(nnz))
 
 
 def shard_ops(tile_matrices, devices: list, backend: str,
-              dtype: torch.dtype) -> tuple:
-    """(one TileSpMV per shard on its device, the global use_stream;
-    None on the xla backend)."""
-    ops = [TileSpMV.from_plan(p, device=dev, dtype=dtype)
-           for p, dev in zip(_plan_blocks(tile_matrices, backend, dtype),
-                             devices)]
-    return ops, (_global_use_stream(tile_matrices) if backend == "pallas"
-                 else None)
+              dtype: torch.dtype, use_stream: Optional[bool]) -> list:
+    """One TileSpMV per shard of this process, on its device, planned
+    with the reference's shard-uniform options (shared by the 1-D and
+    2-D partitions): force_t pins the chunk shapes, `use_stream` is the
+    global decision (`global_counts`), s_batch 8 and span 64."""
+    cdt = str(dtype).removeprefix("torch.")
+    if backend == "pallas":
+        plans = [build_lane_plan(tm, compute_dtype=cdt, force_t=128,
+                                 use_stream=use_stream, stream_s_batch=8,
+                                 stream_span_rows=64)
+                 for tm in tile_matrices]
+    else:
+        plans = [build_plan(tm, compute_dtype=cdt) for tm in tile_matrices]
+    return [TileSpMV.from_plan(p, device=dev, dtype=dtype)
+            for p, dev in zip(plans, devices)]
 
 
 def resolve_backend(backend: str, config: TileConfig) -> str:
@@ -189,11 +198,6 @@ def resolve_backend(backend: str, config: TileConfig) -> str:
     return backend
 
 
-def _gather_to(parts: list, device: torch.device, m: int) -> torch.Tensor:
-    """The row blocks concatenated on `device`, cut to m rows."""
-    return torch.cat([p.to(device) for p in parts])[:m]
-
-
 class DistributedSpMV:
     """Row-partitioned SpMV over a 1-D device mesh.
 
@@ -201,6 +205,9 @@ class DistributedSpMV:
     >>> op = DistributedSpMV(csr, mesh=make_mesh(8, devices=["cpu"] * 8))
     >>> y = op(x)                  # y on the mesh's first device
     >>> blocks = op.shard_outputs(x)   # row block d on mesh device d
+
+    On a mesh that spans processes every process builds the operator
+    and calls it with the whole x (see the module doc).
 
     backend "pallas" runs each shard's lane plan (the class kernels on
     the card); "xla" the plain torch engines; "auto" pallas at tile size
@@ -217,8 +224,9 @@ class DistributedSpMV:
             raise ValueError(f"unknown x_mode {x_mode!r}")
         backend = resolve_backend(backend, config)
         self.mesh = mesh if mesh is not None else make_mesh()
-        devs = self.mesh.flat()
-        ndev = len(devs)
+        ndev = self.mesh.size
+        local = self.mesh.local()
+        devs = self.mesh.local_devices()
         b = config.tile_size
         m, n = csr.shape
         tilem_total = -(-m // b)
@@ -248,27 +256,28 @@ class DistributedSpMV:
         if x_mode == "halo":
             # two plans per shard: the local plan reads only the shard's
             # own x segment; the foreign plan reads [own ++ packets]
-            self.tile_matrices = [tile_create(blk, config)
-                                  for blk in halo.local_blocks]
-            foreign = [tile_create(blk, config)
-                       for blk in halo.foreign_blocks]
-            self.shards, use_l = shard_ops(self.tile_matrices, devs,
-                                           backend, dtype)
-            self.foreign_shards, use_f = shard_ops(foreign, devs, backend,
-                                                   dtype)
-            self.use_stream = (use_l, use_f)
+            self.tile_matrices = [tile_create(halo.local_blocks[d], config)
+                                  for d in local]
+            foreign = [tile_create(halo.foreign_blocks[d], config)
+                       for d in local]
+            use, self.nnz = global_counts([self.tile_matrices, foreign],
+                                          backend, self.mesh)
+            self.shards = shard_ops(self.tile_matrices, devs, backend,
+                                    dtype, use[0])
+            self.foreign_shards = shard_ops(foreign, devs, backend, dtype,
+                                            use[1])
             self._send_idx = [
                 torch.from_numpy(halo.send_idx[d].astype(np.int64)).to(dev)
-                for d, dev in enumerate(devs)]
+                for d, dev in zip(local, devs)]
         else:
-            self.tile_matrices = [tile_create(blk, config)
-                                  for blk in blocks]
-            self.shards, use = shard_ops(self.tile_matrices, devs, backend,
-                                         dtype)
+            self.tile_matrices = [tile_create(blocks[d], config)
+                                  for d in local]
+            use, self.nnz = global_counts([self.tile_matrices], backend,
+                                          self.mesh)
+            self.shards = shard_ops(self.tile_matrices, devs, backend,
+                                    dtype, use[0])
             self.foreign_shards = None
-            self.use_stream = (use,)
-        self.nnz = sum(op.nnz for op in self.shards
-                       + (self.foreign_shards or []))
+        self.use_stream = tuple(use)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -292,8 +301,9 @@ class DistributedSpMV:
     def shard_outputs(self, x) -> list:
         """y's row blocks: block d (`rows_per_device` rows, the last ones
         past m empty) on mesh device d, the counterpart of the
-        reference's y sharded P('row')."""
-        devs = self.mesh.flat()
+        reference's y sharded P('row'); on a mesh that spans processes,
+        the blocks of this process's positions."""
+        devs = self.mesh.local_devices()
         x = torch.as_tensor(x, dtype=self.dtype, device=devs[0])
         if x.shape != (self.n,):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
@@ -302,8 +312,10 @@ class DistributedSpMV:
             return self._halo_outputs(x, devs)
         x = F.pad(x, (0, self.n_pad - self.n))
         if self.x_mode == "allgather":
-            xs = all_gather([p.to(dev) for p, dev in
-                             zip(x.chunk(len(devs)), devs)], devs)
+            chunks = x.chunk(self.mesh.size)
+            xs = all_gather([chunks[d].to(dev) for d, dev in
+                             zip(self.mesh.local(), devs)], devs,
+                            mesh=self.mesh)
         else:
             xs = [x.to(dev) for dev in devs]
         out = []
@@ -315,15 +327,16 @@ class DistributedSpMV:
     def _halo_outputs(self, x: torch.Tensor, devs: list) -> list:
         h = self.halo
         x = F.pad(x, (0, h.n_x_pad - self.n))
-        own = [seg.to(dev).view(h.rx, XB)
-               for seg, dev in zip(x.split(h.rx * XB), devs)]
+        segs = x.split(h.rx * XB)
+        own = [segs[d].to(dev).view(h.rx, XB)
+               for d, dev in zip(self.mesh.local(), devs)]
         # the packets are issued before the local plans' kernels, which
         # do not depend on them (as the reference orders them)
         send = []
         for x2, idx, dev in zip(own, self._send_idx, devs):
             with on(dev):
                 send.append(x2.index_select(0, idx))
-        recv = all_to_all(send, devs)
+        recv = all_to_all(send, devs, mesh=self.mesh)
         ys = []
         for op, x2, dev in zip(self.shards, own, devs):
             with on(dev):
@@ -336,5 +349,6 @@ class DistributedSpMV:
         return out
 
     def __call__(self, x) -> torch.Tensor:
-        """y = A @ x on the mesh's first device."""
-        return _gather_to(self.shard_outputs(x), self.mesh.flat()[0], self.m)
+        """y = A @ x on the mesh's first device (on a mesh that spans
+        processes, this process's first)."""
+        return gather(self.shard_outputs(x), self.mesh)[: self.m]
