@@ -78,23 +78,28 @@ Phases, each fatal on failure:
    the ratio to phase 5's f32 ms;
 9. measurement — with the launch counters reset just before: the two
    microbenchmarks (tilespmv_tpu_torch/scripts/microbench_{gather,
-   scatter}.py's `timeit`: every R and every arm, ns per step over 4 and
-   64 whole waves) and `utils.profiling.profile_engines` on the trio in
-   f32 and f64; microbench_gather, microbench_scatter and every SpMV
-   class kernel must have launched, and every class of each plan must
-   be profiled with us > 0; each class's bytes printed against the
-   card's L2 size, the sum of the class times beside phase 5's and
-   phase 8's end-to-end ms; `utils.profiling.trace_context` around
-   TRACE_CALLS op(x) per matrix and dtype must trace device time, whose
-   share of the end-to-end ms (the device's busy share) is printed with
-   the largest device items; then each microbenchmark kernel against
-   its plain version on the card for every R and arm (one launch of one
-   wave of steps, the phase-4 bound), with the kernel's time per step
-   (the scripts' number), the plain version's time for one step, and
-   the time of a launch of one step, and the bound per step (the
-   variant's operations over the FP32 peak, its inputs once over the
-   launch); no one PyTorch call computes a step, so these rows have no
-   library call.
+   scatter}.py's `timeit`: every R and every arm, ns per step over
+   launches of 4 and 64 steps a unit of the persistent grid,
+   `kernels.microbench_grid`) and `utils.profiling.profile_engines` on
+   the trio in f32 and f64; microbench_gather, microbench_scatter and
+   every SpMV class kernel must have launched, and every class of each
+   plan must be profiled with us > 0; each class's bytes printed
+   against the card's L2 size, the sum of the class times beside phase
+   5's and phase 8's end-to-end ms; `utils.profiling.trace_context`
+   around TRACE_CALLS op(x) per matrix and dtype must trace device time,
+   whose share of the end-to-end ms (the device's busy share) is
+   printed with the largest device items; then each microbenchmark
+   kernel against its plain version on the card for every R and arm,
+   one launch each of 1, G - 1, G + 1 and MB_CHECK_STEPS steps (G: the
+   grid's units; the phase-4 bound), with the kernel's time per step
+   (the scripts' number), the plain version's time for one step, the
+   time of a launch of one step, the bound per step (the variant's
+   operations over the FP32 peak, its inputs once over the timed
+   launch), the shared-memory floor per step (the scripts'
+   `wavefronts` over every SM at the highest SM clock) and the time of
+   a launch of 2n steps over that of n = MB_RATIO_STEPS * G, which must
+   exceed 1.5 (each step's work stays in its step); no one
+   PyTorch call computes a step, so these rows have no library call.
 10. entry points — the command-line tool `tilespmv_tpu_torch.cli.main`
    as a user runs it, the launch counters reset before each call, each
    call fatal unless it exits 0: mixed_large with --profile,
@@ -312,6 +317,12 @@ MB_OPS.update({("microbench_scatter", "rounds"): 8 * 13 * 1024 * 2,
                ("microbench_scatter", "offs_nodep"): (13 * 8 + 8) * 1024,
                ("microbench_scatter", "offs_noroll"): (13 + 13 * 8 + 8)
                * 1024})
+# the largest step count at which phase 9 holds each microbenchmark
+# kernel to its plain version
+MB_CHECK_STEPS = 300
+# steps a unit of its persistent grid runs in phase 9's launch of n steps
+# that a launch of 2n is held against
+MB_RATIO_STEPS = 1024
 # right-hand sides of the SpMM phase's plan-level runs and comparisons
 K_MM = 8
 # op(x) calls per matrix and dtype in phase 9's trace
@@ -1020,8 +1031,9 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
                 f"{k} {v / TRACE_CALLS / 1e3:.4f}" for k, v in top)
             + f" [{card}]")
 
-    # each microbenchmark kernel against its plain version
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # each microbenchmark kernel against its plain version, at step counts
+    # that leave most units idle (1), some with a step more (G - 1, G + 1)
+    # and every unit busy (MB_CHECK_STEPS)
     runs = {
         "microbench_gather": {
             r: (lambda n, r=r: kernels.microbench_gather(*g_in, r, n),
@@ -1038,37 +1050,61 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
         "microbench_gather"]}, "microbench_scatter": s_in}
     results = []
     for name, (src, replaces) in MB_KERNELS.items():
-        errs, ms, plain_ms, one_ms, bnd = {}, {}, {}, {}, {}
+        errs, ms, plain_ms, one_ms, bnd, floor_ms, ratio = (
+            {}, {}, {}, {}, {}, {}, {})
         for v, (run, plain) in runs[name].items():
-            wave = sms * kernels.microbench_blocks_per_sm(name, v)
+            script = (microbench_gather if name == "microbench_gather"
+                      else microbench_scatter)
+            units, cluster = kernels.microbench_grid(name, v)
+            n_timed = script.WAVES[1] * units
             # per step: the inputs and the (8, 128) result once over the
-            # timed launch of 64 waves, and the variant's operations
+            # timed launch, and the variant's operations
             nbytes = 8 * 128 * 4 + sum(t.numel() * t.element_size()
                                        for t in inputs[name][v])
-            bnd[v] = profiling.roofline(nbytes / (64 * wave),
-                                        MB_OPS[name, v], 4)
-            before = kernels.launch_counts()[name]
-            out = run(wave)
+            bnd[v] = profiling.roofline(nbytes / n_timed, MB_OPS[name, v], 4)
+            floor_ms[v] = profiling.shared_floor_ns(
+                script.wavefronts(v, inputs[name][v][1]), dev) / 1e6
             want = plain()
-            torch.cuda.synchronize()
-            if kernels.launch_counts()[name] != before + 1:
-                raise AssertionError(f"{name} {v}: no launch counted")
-            err = errs[v] = float((out - want).abs().max())
             bound = KERNEL_TOL * max(1.0, float(want.abs().max()))
-            if not err <= bound:
-                raise AssertionError(f"{name} {v}: max |kernel - plain| "
-                                     f"{err:.3e} > {bound:.3e}")
+            for n in (1, units - 1, units + 1, MB_CHECK_STEPS):
+                if n < 1:
+                    continue
+                before = kernels.launch_counts()[name]
+                out = run(n)
+                torch.cuda.synchronize()
+                if kernels.launch_counts()[name] != before + 1:
+                    raise AssertionError(f"{name} {v}: no launch counted")
+                err = float((out - want).abs().max())
+                if not err <= bound:
+                    raise AssertionError(
+                        f"{name} {v}, {n} steps: max |kernel - plain| "
+                        f"{err:.3e} > {bound:.3e}")
+                errs[v] = max(errs.get(v, 0.0), err)
             ms[v] = timings[name][v] / 1e6
             plain_ms[v] = cuda_ms(plain, iters=20)
             one_ms[v] = cuda_ms(lambda: run(1), iters=20)
-            log(f"kernel {name} {v}: max abs err {err:.3e} (bound "
-                f"{bound:.3e}, {wave} steps); per step: kernel "
+            # a step's work stays in the step: twice the steps, twice the
+            # time (the launch's fixed cost and input load, tens of us,
+            # are small beside MB_RATIO_STEPS steps a unit)
+            n_ratio = MB_RATIO_STEPS * units
+            ratio[v] = (profiling.launch_time(run, 2 * n_ratio)
+                        / profiling.launch_time(run, n_ratio))
+            log(f"kernel {name} {v}: max abs err {errs[v]:.3e} (bound "
+                f"{bound:.3e}; 1, G - 1, G + 1, {MB_CHECK_STEPS} steps; "
+                f"G = {units} units of {cluster}); per step: kernel "
                 f"{ms[v] * 1e6:.3f} ns (whole chip, above) vs plain "
                 f"{plain_ms[v] * 1e6:.1f} ns, bound "
                 f"{bnd[v]['bound_ms'] * 1e6:.3f} ns by "
                 f"{bnd[v]['bound_by']} (share "
-                f"{bnd[v]['bound_ms'] / ms[v]:.3f}); a launch of one step "
+                f"{bnd[v]['bound_ms'] / ms[v]:.3f}), shared-memory floor "
+                f"{floor_ms[v] * 1e6:.3f} ns (share "
+                f"{floor_ms[v] / ms[v]:.3f}); {2 * n_ratio} against "
+                f"{n_ratio} steps {ratio[v]:.3f}x; a launch of one step "
                 f"{one_ms[v]:.4f} ms [{card}]")
+            if not ratio[v] > 1.5:
+                raise AssertionError(
+                    f"{name} {v}: {2 * n_ratio} steps took {ratio[v]:.3f}x "
+                    f"the time of {n_ratio}: a step's work left the step")
         first = next(iter(ms))
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
@@ -1085,6 +1121,9 @@ def measurement_phase(dev, card, ops, e2e_ms) -> list:
             plain_ms_by_variant={str(v): t for v, t in plain_ms.items()},
             bound_ms_by_variant={str(v): b["bound_ms"]
                                  for v, b in bnd.items()},
+            shared_floor_ms_by_variant={str(v): t
+                                        for v, t in floor_ms.items()},
+            two_n_over_n={str(v): t for v, t in ratio.items()},
             one_step_launch_ms={str(v): t for v, t in one_ms.items()}))
     return results
 

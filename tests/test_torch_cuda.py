@@ -660,36 +660,43 @@ def test_spmm_probe_arms_match_plain_versions(device):
             a for a in arms if a in spmm_probes.STREAM_TIMED_ONLY]
 
 
-def _mb_check(name, run, plain) -> None:
-    """One launch of a microbenchmark kernel over a few waves of steps
-    against its plain version, within 1e-5 * max(1, max|plain|)."""
-    before = kernels.launch_counts()[name]
-    out = run()
-    assert kernels.launch_counts()[name] == before + 1
-    torch.cuda.synchronize()
-    assert out.shape == (8, 128) and out.dtype == torch.float32
-    err = float((out - plain).abs().max())
-    assert err <= 1e-5 * max(1.0, float(plain.abs().max())), err
+def _mb_check(name, variant, run, plain) -> None:
+    """One launch of a microbenchmark kernel at each of 1, G - 1, G + 1
+    and 300 steps (G: the units of its persistent grid; 1 leaves most
+    units idle, G - 1 and G + 1 give some units a step more) against its
+    plain version, within 1e-5 * max(1, max|plain|)."""
+    units, cluster = kernels.microbench_grid(name, variant)
+    assert units >= 1 and cluster in (1, 2)
+    for n in sorted({1, max(1, units - 1), units + 1, 300}):
+        before = kernels.launch_counts()[name]
+        out = run(n)
+        assert kernels.launch_counts()[name] == before + 1
+        torch.cuda.synchronize()
+        assert out.shape == (8, 128) and out.dtype == torch.float32
+        err = float((out - plain).abs().max())
+        assert err <= 1e-5 * max(1.0, float(plain.abs().max())), (n, err)
 
 
 @pytest.mark.parametrize("r", reference.MB_GATHER_R)
 def test_microbench_gather_matches_plain_version(r, device):
     src, idx = microbench_gather.inputs(seed=r, device=device)
     plain = reference.microbench_gather_reference(src, idx, r)
-    _mb_check("microbench_gather",
-              lambda: kernels.microbench_gather(src, idx, r, nsteps=300),
+    _mb_check("microbench_gather", r,
+              lambda n: kernels.microbench_gather(src, idx, r, nsteps=n),
               plain)
-    assert kernels.microbench_blocks_per_sm("microbench_gather", r) >= 1
+    assert kernels.microbench_grid("microbench_gather", r)[1] == 2
 
 
 @pytest.mark.parametrize("arm", reference.MB_SCATTER_ARMS)
 def test_microbench_scatter_matches_plain_version(arm, device):
     csum, pe = microbench_scatter.inputs(arm, seed=1, device=device)
     plain = reference.microbench_scatter_reference(arm, csum, pe)
-    _mb_check("microbench_scatter",
-              lambda: kernels.microbench_scatter(arm, csum, pe, nsteps=300),
+    _mb_check("microbench_scatter", arm,
+              lambda n: kernels.microbench_scatter(arm, csum, pe,
+                                                   nsteps=n),
               plain)
-    assert kernels.microbench_blocks_per_sm("microbench_scatter", arm) >= 1
+    assert kernels.microbench_grid("microbench_scatter", arm)[1] == (
+        2 if arm == "rounds" else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -112,6 +112,95 @@ def test_microbench_wrappers_refuse_bad_inputs():
         kernels.microbench_scatter("offs", csum.to("meta"), pe.to("meta"))
 
 
+@pytest.mark.parametrize("script,variants,units,cluster", [
+    (t_gather, reference.MB_GATHER_R, 66, 2),
+    (t_scatter, ("rounds",), 66, 2),
+    (t_scatter, ("offs", "offs_nodep", "offs_noroll"), 132, 1)])
+def test_timeit_steps_are_whole_multiples_of_the_grid(
+        script, variants, units, cluster, monkeypatch, capsys):
+    """Each script's `timeit` on the CPU with the card's calls stubbed:
+    it times by `step_time` over WAVES[0] and WAVES[1] steps a unit of
+    `kernels.microbench_grid`'s G (whole multiples of G, so every unit
+    runs the same number of steps), and prints its per-R / per-arm line
+    with the shared-memory floor of the variant's wavefronts."""
+    from tilespmv_tpu_torch.utils import profiling
+    asked, counts, floors = [], [], []
+    monkeypatch.setattr(
+        kernels, "microbench_grid",
+        lambda name, v: asked.append((name, v)) or (units, cluster))
+
+    def step_time(launch, n1, n2):
+        counts.append((n1, n2))
+        assert tuple(launch(1).shape) == (8, 128)   # the plain version
+        return 40e-9
+    monkeypatch.setattr(script, "step_time", step_time)
+    monkeypatch.setattr(script, "shared_floor_ns",
+                        lambda w, dev: floors.append(w) or 20.0)
+    for v in variants:
+        args = t_gather.inputs() if script is t_gather else (
+            t_scatter.inputs(v))
+        assert script.timeit(v, *args) == pytest.approx(40.0)
+        assert floors[-1] == script.wavefronts(v, args[1])
+    name = "microbench_gather" if script is t_gather else (
+        "microbench_scatter")
+    assert asked == [(name, v) for v in variants]
+    assert counts == [(script.WAVES[0] * units, script.WAVES[1] * units)
+                      ] * len(variants)
+    assert script.WAVES[0] < script.WAVES[1]
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(variants)
+    for v, line in zip(variants, lines):
+        if script is t_gather:
+            assert line.startswith(f"R={v:3d}:   40.000 ns/step")
+        else:
+            assert line.startswith(f"{v:12s}:   3.077 ns/slab")
+        assert f"G={units} " in line and f"of {cluster}" in line
+        assert "floor" in line and "wavefronts" in line
+
+
+def test_bank_wavefronts_counts_distinct_words_a_bank():
+    """profiling.bank_wavefronts: a warp's load takes as many wavefronts
+    as the most distinct words in one bank; lanes on one word share it."""
+    from tilespmv_tpu_torch.utils.profiling import bank_wavefronts
+    lanes = np.arange(32)
+    got = bank_wavefronts(np.stack([
+        lanes, np.zeros(32), lanes * 32, (lanes % 4) * 32,
+        lanes // 4 + 1000, 7 + 128 * (lanes % 3)]))
+    assert got.tolist() == [1, 1, 32, 4, 1, 3]
+    assert bank_wavefronts(np.zeros((2, 3, 32))).shape == (2, 3)
+
+
+def test_wavefronts_follow_the_kernels_walk():
+    """The scripts' per-step wavefront counts: with every index 0 each
+    load is one wavefront, so the counts are the kernels' loads (gather:
+    512 rows x 4 warps of gathers, 64 warps x 32 / (R / 8) index loads,
+    two at R = 64, and 64 for the partial; scatter rounds: 8 rounds x 13
+    slabs x 32 warps x 5 loads and 64; offs: 13 slabs x 32 warps x (21
+    or 16)); on the seeded inputs a gather of 32 random columns of a row
+    takes 2.6-3.0 wavefronts on average."""
+    src, idx = t_gather.inputs()
+    zero = torch.zeros_like(idx)
+    for r, loads in zip(reference.MB_GATHER_R, (2048, 1024, 512, 512)):
+        assert t_gather.wavefronts(r, zero) == 2048 + loads + 64
+    spare = t_gather.wavefronts(32, idx) - 512 - 64
+    assert 2.6 < spare / 2048 < 3.0
+    assert t_gather.wavefronts(8, idx) - t_gather.wavefronts(16, idx) == 1024
+    pe = torch.zeros((reference.MB_PE_ROWS, 128), dtype=torch.int8)
+    want = {"rounds": 8 * 13 * 32 * 5 + 64, "offs": 13 * 32 * 21,
+            "offs_nodep": 13 * 32 * 16, "offs_noroll": 13 * 32 * 21}
+    for arm, w in want.items():
+        assert t_scatter.wavefronts(arm, pe) == w
+        assert t_scatter.wavefronts(arm, t_scatter.inputs(arm)[1]) > w
+
+
+def test_microbench_grid_refuses_unknown_variants():
+    for name, v in (("microbench_gather", 12),
+                    ("microbench_scatter", "offs_roll"),
+                    ("microbench_stream", 8)):
+        with pytest.raises(ValueError):
+            kernels.microbench_grid(name, v)
+
+
 @pytest.mark.parametrize("script,argv", [
     (t_gather, None), (t_scatter, []), (t_scatter, ["rounds"]),
     (stream_probes, None), (dense_probes, None), (band_probes, None),

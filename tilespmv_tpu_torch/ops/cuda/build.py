@@ -49,10 +49,10 @@ ENTRY_POINTS = {
     "tsp_dense_spmm_bf16": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "tsp_sparse_spmm_bf16": [_P] * 6 + [_I] * 6 + [_P],
     "tsp_stream2_bf16": [_P] * 10 + [_I] * 6 + [_P],
-    "tsp_mb_gather": [_P] * 3 + [_I] * 2 + [_P],
-    "tsp_mb_gather_occupancy": [_I, _PI],
-    "tsp_mb_scatter": [_P] * 3 + [_I] * 2 + [_P],
-    "tsp_mb_scatter_occupancy": [_I, _PI],
+    "tsp_mb_gather": [_P] * 3 + [_I] * 3 + [_P],
+    "tsp_mb_gather_grid": [_I, _PI, _PI],
+    "tsp_mb_scatter": [_P] * 3 + [_I] * 3 + [_P],
+    "tsp_mb_scatter_grid": [_I, _PI, _PI],
 }
 
 _lock = threading.Lock()

@@ -463,8 +463,9 @@ def microbench_gather(src: torch.Tensor, idx: torch.Tensor, r: int,
     """The gather microbenchmark at group width r in MB_GATHER_R: src
     (512, 128) float32, idx (512, 128) int8 in [0, 128); returns the
     (8, 128) result of reference.microbench_gather_reference. On CUDA
-    one launch runs `nsteps` steps (blocks), each computing and storing
-    that same result."""
+    one launch runs `nsteps` steps on min(G, nsteps) clusters
+    (microbench_grid), each step computing and storing that same
+    result."""
     dev = src.device
     _check("src", src, torch.float32, (MB_ROWS, LANES), dev)
     _check("idx", idx, torch.int8, (MB_ROWS, LANES), dev)
@@ -473,8 +474,9 @@ def microbench_gather(src: torch.Tensor, idx: torch.Tensor, r: int,
     out = _mb_out(dev, nsteps)
     if not _use_kernel(out):
         return microbench_gather_reference(src, idx, r)
+    units = min(microbench_grid("microbench_gather", r)[0], nsteps)
     err = build.load().tsp_mb_gather(_p(src), _p(idx), _p(out), r, nsteps,
-                                     _stream())
+                                     units, _stream())
     _launched("microbench_gather", err)
     return out
 
@@ -485,7 +487,8 @@ def microbench_scatter(arm: str, csum: torch.Tensor, pe: torch.Tensor,
     (104, 128) float32, pe (MB_PE_ROWS, 128) int8 in [0, 8) for rounds
     and [0, 128) otherwise; returns the (8, 128) result of
     reference.microbench_scatter_reference. On CUDA one launch runs
-    `nsteps` steps (blocks), each computing and storing that result."""
+    `nsteps` steps on min(G, nsteps) units (microbench_grid), each step
+    computing and storing that result."""
     dev = csum.device
     _check("csum", csum, torch.float32, (MB_SLABS * SUBS, LANES), dev)
     _check("pe", pe, torch.int8, (MB_PE_ROWS, LANES), dev)
@@ -495,27 +498,38 @@ def microbench_scatter(arm: str, csum: torch.Tensor, pe: torch.Tensor,
     out = _mb_out(dev, nsteps)
     if not _use_kernel(out):
         return microbench_scatter_reference(arm, csum, pe)
+    units = min(microbench_grid("microbench_scatter", arm)[0], nsteps)
     err = build.load().tsp_mb_scatter(_p(csum), _p(pe), _p(out),
                                       MB_SCATTER_ARMS.index(arm), nsteps,
-                                      _stream())
+                                      units, _stream())
     _launched("microbench_scatter", err)
     return out
 
 
-def microbench_blocks_per_sm(name: str, variant) -> int:
-    """Resident blocks per SM of a microbenchmark kernel: `name`
-    "microbench_gather" with R, or "microbench_scatter" with an arm
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor; needs the card)."""
-    n = ctypes.c_int(0)
-    lib = build.load()
-    if name == "microbench_gather":
-        err = lib.tsp_mb_gather_occupancy(variant, ctypes.byref(n))
-    elif name == "microbench_scatter":
-        err = lib.tsp_mb_scatter_occupancy(MB_SCATTER_ARMS.index(variant),
-                                           ctypes.byref(n))
+_MB_GRID = {}
+
+
+def microbench_grid(name: str, variant) -> tuple[int, int]:
+    """(G, blocks a unit) of a microbenchmark kernel on the current card:
+    `name` "microbench_gather" with R, or "microbench_scatter" with an
+    arm. A unit is one block or a cluster of two that computes a step;
+    G is the most units resident at once (SMs x blocks an SM, or
+    cudaOccupancyMaxActiveClusters), the persistent grid a launch of
+    nsteps >= G steps runs on. Needs the card; cached per card."""
+    if name == "microbench_gather" and variant in MB_GATHER_R:
+        entry, arg = "tsp_mb_gather_grid", variant
+    elif name == "microbench_scatter" and variant in MB_SCATTER_ARMS:
+        entry, arg = "tsp_mb_scatter_grid", MB_SCATTER_ARMS.index(variant)
     else:
-        raise ValueError(f"no microbenchmark kernel {name!r}")
-    if err != 0 or n.value < 1:
-        raise RuntimeError(f"{name} {variant}: occupancy query failed "
-                           f"(CUDA error {err}, {n.value} blocks per SM)")
-    return n.value
+        raise ValueError(f"no microbenchmark kernel {name!r} {variant!r}")
+    key = (name, variant, torch.cuda.current_device())
+    if key not in _MB_GRID:
+        n, cluster = ctypes.c_int(0), ctypes.c_int(0)
+        err = getattr(build.load(), entry)(arg, ctypes.byref(n),
+                                           ctypes.byref(cluster))
+        if err != 0 or n.value < 1 or cluster.value not in (1, 2):
+            raise RuntimeError(f"{name} {variant}: grid query failed (CUDA "
+                               f"error {err}, {n.value} units of "
+                               f"{cluster.value} blocks)")
+        _MB_GRID[key] = (n.value, cluster.value)
+    return _MB_GRID[key]

@@ -8,7 +8,10 @@ so the cost of every class is visible, and `trace_context` records a
 `torch.profiler` trace for deep dives. `csr_bound`, `band_bound` and
 `class_bound` give the least time the card could take for a class's
 work, the yardstick its kernel's time is read against; `graph_ms` and
-`ab_arms` time kernels and the probe scripts' arms on the card.
+`ab_arms` time kernels and the probe scripts' arms on the card;
+`step_time` and `launch_time` time the microbenchmarks' steps, and
+`shared_floor_ns` gives a step's shared-memory floor from its
+`bank_wavefronts`.
 """
 from __future__ import annotations
 
@@ -68,31 +71,77 @@ def _timed(fn, *args, reps: int = 3, k1: int = 25, k2: int = 425) -> float:
     return max(float(np.median(ts)), 1e-9)
 
 
-def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
-    """Difference-method time of one grid step of a kernel on the card,
-    in seconds: `launch(n)` enqueues one launch of n steps (blocks); the
-    CUDA-event time of launch(n2) minus that of launch(n1), over n2 - n1,
-    the median over `reps` (after one warm-up launch of each size). With
-    n1 and n2 whole waves of blocks, the result is the chip's time per
-    step with every SM running steps together; the launch's fixed cost
-    and its last, partly filled wave cancel."""
-    def one(n: int) -> float:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch(n)
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / 1e3
+def _launch_s(launch, n: int) -> float:
+    """CUDA-event time of one launch(n), in seconds."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    launch(n)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 1e3
 
-    one(n1)
-    one(n2)
+
+def step_time(launch, n1: int, n2: int, reps: int = 5) -> float:
+    """Difference-method time of one step of a kernel on the card, in
+    seconds: `launch(n)` enqueues one launch of n steps; the CUDA-event
+    time of launch(n2) minus that of launch(n1), over n2 - n1, the median
+    over `reps` (after one warm-up launch of each size). With n1 and n2
+    whole multiples of the units a launch runs at once (the
+    microbenchmarks' persistent grid), the result is the chip's time per
+    step with every SM running steps together; the launch's fixed cost
+    and whatever a unit does once a launch (the microbenchmarks' input
+    load) cancel."""
+    _launch_s(launch, n1)
+    _launch_s(launch, n2)
     ts = []
     for _ in range(reps):
-        ta = one(n1)
-        tb = one(n2)
+        ta = _launch_s(launch, n1)
+        tb = _launch_s(launch, n2)
         ts.append((tb - ta) / (n2 - n1))
     return float(np.median(ts))
+
+
+def launch_time(launch, n: int, reps: int = 5) -> float:
+    """Median CUDA-event time of one launch(n), in seconds, after one
+    warm-up launch."""
+    _launch_s(launch, n)
+    return float(np.median([_launch_s(launch, n) for _ in range(reps)]))
+
+
+def bank_wavefronts(words) -> np.ndarray:
+    """Shared-memory wavefronts of warp loads: `words` (..., 32) holds the
+    32-bit word each lane of a warp reads (a byte's word for a byte load).
+    A load takes as many wavefronts as the most distinct words that fall
+    in one of the 32 banks (lanes reading one word share it); returns one
+    count per warp, shape words.shape[:-1]."""
+    w = np.sort(np.asarray(words, dtype=np.int64), axis=-1)
+    lead = w.shape[:-1]
+    w = w.reshape(-1, 32)
+    new = np.ones(w.shape, dtype=np.int64)
+    new[:, 1:] = w[:, 1:] != w[:, :-1]
+    slot = np.arange(len(w))[:, None] * 32 + w % 32
+    per_bank = np.bincount(slot.ravel(), weights=new.ravel(),
+                           minlength=32 * len(w)).reshape(-1, 32)
+    return per_bank.max(axis=1).astype(np.int64).reshape(lead)
+
+
+def sm_clock_hz() -> float:
+    """Card 0's highest SM clock, in Hz (`nvidia-smi
+    --query-gpu=clocks.max.sm`)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def shared_floor_ns(wavefronts: int, device) -> float:
+    """Least time of `wavefronts` shared-memory wavefronts spread over
+    every SM of `device`, one wavefront an SM a cycle at the highest SM
+    clock, in ns."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return wavefronts / (sms * sm_clock_hz()) * 1e9
 
 
 # H100 SXM peaks at its 700 W limit (bench/roofline.py's table): HBM3
