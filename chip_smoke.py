@@ -220,20 +220,47 @@ Phases, each fatal on failure:
    ROUTE_FORCE_THETA 0..len(W_CHOICES): each plan's class kernels must
    launch and y pass phase 3's gates; its classes and graph ms are
    printed beside the fixed arm's. The phase's seconds are printed.
+15. planner arms — the reference planner's layouts that the port loads
+   but does not build, each from a file the reference wrote
+   (tests/fixtures/arm_plans, listed in its manifest.json; written by
+   tests/make_arm_plans.py on the CPU) through `load_lane_plan` and
+   `TileSpMV.from_plan(plan, device="cuda")`. (a) The stream y-scatter
+   encodings offs and roll: power_law(2048, 2048, 10, seed=6) in f32,
+   bf16 (`as_bf16` of the f32 plan) and f64 (the reference's df64
+   file); every stream class's erow must equal the port's own (rounds)
+   plan's. (b) The prefix route of the dense and W-classes: mixed_medium
+   (dense, W24) and block_random(2048, 2048, 0.05, 0.33, seed=5) (dense,
+   W96) in f32 and bf16. For each plan, with the launch counters reset
+   just before, one op(x) and (f32, bf16) one matmat at k = 8: the
+   kernels of the arm (stream and stream2; dense, sparse, dense_spmm and
+   sparse_spmm; in the plan's dtype) must launch, and y and Y pass phase
+   3's gates (f32), phase 8's 1e-12 (f64) or phase 11's 2^-8 (bf16);
+   each of those kernels against its plain version on every class of its
+   kind, with a seeded uniform(-1, 1) x, within KERNEL_TOL (f64:
+   KERNEL_TOL_F64) of max(1, max|plain|); its graph ms beside the port's
+   own plan's (in turns: own, arm, arm, own), and the plan MB of both.
+   (c) `rectangular(262144, 4194304, 8)` as one plan and with
+   max_cols_per_plan = 2^21 and 2^20 (2 and 4 column parts): y passes
+   phase 3's gates, with its graph ms, eager ms (CUDA events over a loop
+   of calls), plan MB and build seconds. The phase's seconds are
+   printed.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
 ms, plain_ms, bound_ms and bound_by, library_ms, share of bound; a
 "forced" list per kernel: plan, error, ms and the automatic plan's ms;
-"distributed_launches": the SpMV kernels' launches over phase 13's
+an "arms" dict per kernel that phase 15 ran: per arm, matrix and dtype,
+error, ms and the default plan's ms; "distributed_launches": the SpMV kernels' launches over phase 13's
 main-path calls; "multiprocess_launches": over phase 14's, summed over
 its workers) with an "xla" entry per matrix (ms and eager_ms at
 tile sizes 16 and 8, the lane plan's, cuSPARSE's, conversion and
 planning seconds) and a "distributed" entry per matrix (per operator:
 ms, eager ms, the single-device operator's, error, traffic_ratio,
 exchanged bytes; the sweep's points), a "multiprocess" list (phase 14
-(a), per operator and world) and a "routing" entry (phase 14 (b)), then
-the last line
+(a), per operator and world), a "routing" entry (phase 14 (b)) and an
+"arms" entry (phase 15: per arm, matrix and dtype, plan MB and the op(x)
+and matmat graph ms beside the default plan's; the column parts' rows),
+then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
 """
@@ -349,6 +376,14 @@ NCCL1_SPECS = [("mixed_large", "allgather", "f32"),
                ("banded_large", "halo", "f32"), ("mixed_large", "2d", "f32")]
 # seconds a phase-14 world may take, build included
 MP_TIMEOUT = 300
+# phase 15: the reference's plan files of the planner arms, and the
+# kernels that run each arm's layout (SpMV, then SpMM at K_MM)
+ARM_PLANS = pathlib.Path("tests") / "fixtures" / "arm_plans"
+ARM_KERNELS = {"offs": ("stream", "stream2"), "roll": ("stream", "stream2"),
+               "prefix": ("dense", "sparse", "dense_spmm", "sparse_spmm")}
+# phase 15 (c): the wide matrix and its column-partition limits
+COL_PARTS_MATRIX = (262144, 4194304, 8)
+COL_PARTS_LIMITS = (None, 1 << 21, 1 << 20)
 
 
 def log(msg: str) -> None:
@@ -2003,10 +2038,7 @@ def routing_phase(dev, card, csrs, ops) -> dict:
     ref = golden(csr, bench_x(csr.n))
     tm = tile_create(csr)
 
-    def classes(op) -> str:
-        return " ".join(f"{c['kind']}:{c.get('chunks', c.get('slabs'))}"
-                        for c in op.summary["classes"])
-
+    classes = class_counts
     fixed_ms = graph_ms(lambda: ops[n](x))
     out = {"fixed": dict(ms=fixed_ms, classes=classes(ops[n]))}
     arms = [("model", "model", None)] + [
@@ -2042,6 +2074,218 @@ def routing_phase(dev, card, csrs, ops) -> dict:
             f"[{card}]")
         del op
     return out
+
+
+# phase 15: each arm kernel's wrapper, plain version and RHS count
+def _arm_pairs() -> dict:
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+    return {"stream": (kernels.stream_spmv,
+                       reference.stream_rows_reference, None),
+            "stream2": (kernels.stream_spmm,
+                        reference.stream_rows_reference, K_MM),
+            "dense": (kernels.dense_spmv, reference.dense_reference, None),
+            "sparse": (kernels.sparse_spmv,
+                       reference.sparse_rows_reference, None),
+            "dense_spmm": (kernels.dense_spmm,
+                           reference.dense_spmm_reference, K_MM),
+            "sparse_spmm": (kernels.sparse_spmm,
+                            reference.sparse_spmm_reference, K_MM)}
+
+
+_ARM_DTYPES = {"f32": "float32", "f64": "float64", "bf16": "bfloat16"}
+_ARM_SUFFIX = {"f32": "", "f64": "_f64", "bf16": "_bf16"}
+
+
+def in_turns(default, arm) -> tuple:
+    """(default ms, arm ms): graph_ms of each callable in turns default,
+    arm, arm, default, each the mean of its two."""
+    from tilespmv_tpu_torch.utils.profiling import graph_ms
+    ts = {default: [], arm: []}
+    for fn in (default, arm, arm, default):
+        ts[fn].append(graph_ms(fn))
+    return statistics.mean(ts[default]), statistics.mean(ts[arm])
+
+
+def arm_gates(label: str, csr, dt: str, y, ym, x, xm) -> None:
+    """Phase 3's gates (f32), phase 8's (f64) or phase 11's (bf16) on y
+    and, f32 and bf16, on every column of Y (ym) = A @ xm."""
+    if dt == "f64":
+        gate64(label, csr, y.cpu().numpy(), x)
+        return
+    if dt == "bf16":
+        gate_bf16(label, y, golden(csr, x))
+        for r in range(xm.shape[1]):
+            gate_bf16(f"{label} column {r}", ym[:, r], golden(csr, xm[:, r]))
+        return
+    gate(label, y.cpu().numpy(), golden(csr, x))
+    gate_mm(label, csr, ym.cpu().numpy(), xm)
+
+
+def arm_kernel(card, label, kname, sfx, aplan, dplan, tdt, csr, dev) -> dict:
+    """Kernel `kname` (in the plan's dtype) on every class of its kind of
+    the arm's plan `aplan` against its plain version (a seeded
+    uniform(-1, 1) x, KERNEL_TOL or KERNEL_TOL_F64 of max(1,
+    max|plain|)), and its graph ms beside that on the default plan
+    `dplan`'s classes, in turns; printed and returned."""
+    import torch
+    from tilespmv_tpu_torch.ops.cuda import reference
+    wrap, plain, k = _arm_pairs()[kname]
+    classes = class_lists(aplan)[kname]
+    dclasses = class_lists(dplan)[kname]
+    if not classes or not dclasses:
+        raise AssertionError(f"{label}: no {kname} class")
+    rhs = () if k is None else (k,)
+    xr = np.random.default_rng(0).uniform(-1, 1, (csr.n,) + rhs)
+    xp = reference.pad_x(aplan, torch.from_numpy(xr).to(dev, tdt))
+    ylen = max(aplan.y_padded_len, aplan.n_stream_windows * 1024)
+    yk, yp, yd = (torch.zeros((ylen,) + rhs, dtype=xp.dtype, device=dev)
+                  for _ in range(3))
+    for c in classes:
+        wrap(c, xp, yk)
+        plain(c, xp, yp)
+    torch.cuda.synchronize()
+    err = float((yk - yp).abs().max())
+    tol = KERNEL_TOL_F64 if tdt == torch.float64 else KERNEL_TOL
+    bound = tol * max(1.0, float(yp.abs().max()))
+    if not err <= bound:
+        raise AssertionError(f"{label} {kname}{sfx}: max |kernel - plain| "
+                             f"{err:.3e} > {bound:.3e}")
+    d_ms, a_ms = in_turns(lambda: [wrap(c, xp, yd) for c in dclasses],
+                          lambda: [wrap(c, xp, yk) for c in classes])
+    log(f"arms {label}: kernel {kname}{sfx} on {len(classes)} class(es)"
+        f"{'' if k is None else f', k {k}'}: max abs err {err:.3e} (bound "
+        f"{bound:.3e}); {a_ms:.4f} ms vs the default plan's {d_ms:.4f} ms "
+        f"({a_ms / d_ms:.3f}x) [{card}]")
+    return dict(max_abs_err=err, ms=a_ms, default_ms=d_ms)
+
+
+def class_counts(op) -> str:
+    """The operator's classes as "kind:chunks or slabs" words."""
+    return " ".join(f"{c['kind']}:{c.get('chunks', c.get('slabs'))}"
+                    for c in op.summary["classes"])
+
+
+def arms_phase(dev, card) -> tuple:
+    """Phase 15 (see the module doc); returns (the JSON line's "arms"
+    entry, {kernel: {arm label: its error and times}})."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.core.serialize import load_lane_plan
+    from tilespmv_tpu_torch.io import generate
+    from tilespmv_tpu_torch.ops.cuda import kernels, lane_plan
+    from tilespmv_tpu_torch.utils.profiling import graph_ms
+
+    files = pathlib.Path(__file__).resolve().parent / ARM_PLANS
+    out, by_kernel = {}, {}
+    for spec in json.loads((files / "manifest.json").read_text()):
+        arm, (fn, args, kw) = spec["arm"], spec["matrix"]
+        m = spec["file"].rsplit("_", 2)[0]
+        csr = getattr(generate, fn)(*args, **kw)
+        t0 = time.perf_counter()
+        f_plan = load_lane_plan(str(files / spec["file"]))
+        load_s = time.perf_counter() - t0
+        for dt in (("f64",) if spec["dtype"] == "f64" else ("f32", "bf16")):
+            label = f"{arm} {m} {dt}"
+            tdt, sfx = getattr(torch, _ARM_DTYPES[dt]), _ARM_SUFFIX[dt]
+            plan = lane_plan.as_bf16(f_plan) if dt == "bf16" else f_plan
+            op = TileSpMV.from_plan(plan, device=dev, dtype=tdt)
+            base = TileSpMV(csr, device=dev, dtype=tdt)
+            aplan, dplan = op.device_plan(), base.device_plan()
+            # the arm's layout, and (scatter arms) the own plan's erow
+            if arm == "prefix":
+                routed = [c for c in (aplan.dense, *aplan.sparses)
+                          if c is not None]
+                if not routed or any(c.route != arm for c in routed):
+                    raise AssertionError(f"{label}: not a prefix plan")
+            else:
+                pairs = list(zip(class_lists(aplan)["stream"],
+                                 class_lists(dplan)["stream"]))
+                if not pairs or any(a.scatter != arm or not torch.equal(
+                        a.erow, d.erow) for a, d in pairs):
+                    raise AssertionError(f"{label}: stream classes not "
+                                         f"{arm} or erow not the rounds "
+                                         "plan's")
+            # the arm's run, launch counters reset just before
+            x = bench_x(csr.n).astype(np.float64 if dt == "f64"
+                                      else np.float32)
+            xm = bench_xs(csr.n, K_MM)
+            xd = torch.from_numpy(x).to(dev, tdt)
+            xmd = torch.from_numpy(xm).to(dev, tdt)
+            kernels.reset_launch_counts()
+            y = op(xd)
+            ym = op.matmat(xmd) if dt != "f64" else None
+            torch.cuda.synchronize()
+            cnt = kernels.launch_counts()
+            names = [k for k in ARM_KERNELS[arm]
+                     if class_lists(aplan)[k]
+                     and (dt != "f64" or _arm_pairs()[k][2] is None)]
+            missing = [k + sfx for k in names if not cnt[k + sfx]]
+            if not names or missing:
+                raise AssertionError(f"{label}: {missing or 'no class of '}"
+                                     f"{ARM_KERNELS[arm]} never launched "
+                                     f"({cnt})")
+            arm_gates(f"arms {label}", csr, dt, y, ym, x, xm)
+            for k in names:
+                by_kernel.setdefault(k + sfx, {})[f"{arm} {m}"] = \
+                    arm_kernel(card, label, k, sfx, aplan, dplan, tdt, csr,
+                               dev)
+            d_ms, a_ms = in_turns(lambda: base(xd), lambda: op(xd))
+            row = dict(file=spec["file"], plan_mb=op.summary["plan_mbytes"],
+                       default_plan_mb=base.summary["plan_mbytes"],
+                       load_s=load_s, ms=a_ms, default_ms=d_ms,
+                       classes=class_counts(op),
+                       default_classes=class_counts(base),
+                       launches={k: v for k, v in cnt.items() if v})
+            if dt != "f64":
+                row["default_matmat_ms"], row["matmat_ms"] = in_turns(
+                    lambda: base.matmat(xmd), lambda: op.matmat(xmd))
+            out[label] = row
+            log(f"arms {label}: gates ok; plan {row['plan_mb']} MB, "
+                f"{row['classes']} (own plan {row['default_plan_mb']} MB, "
+                f"{row['default_classes']}), loaded in {load_s:.2f} s; "
+                f"op(x) {a_ms:.4f} ms vs own plan {d_ms:.4f} ms"
+                + (f"; matmat(k {K_MM}) {row['matmat_ms']:.4f} ms vs own "
+                   f"plan {row['default_matmat_ms']:.4f} ms"
+                   if dt != "f64" else "")
+                + f"; launches {json.dumps(row['launches'])} [{card}]")
+            del op, base, y, ym
+
+    # (c) column parts of a matrix 4M columns wide
+    csr = generate.rectangular(*COL_PARTS_MATRIX)
+    x = bench_x(csr.n)
+    xd = torch.from_numpy(x).to(dev)
+    ref = golden(csr, x)
+    rows = []
+    for limit in COL_PARTS_LIMITS:
+        t0 = time.perf_counter()
+        op = TileSpMV(csr, device=dev, max_cols_per_plan=limit)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        y = op(xd)
+        torch.cuda.synchronize()
+        cnt = kernels.launch_counts()
+        parts = op.parts if op.parts is not None else [op]
+        for part in parts:
+            for k, cl in class_lists(part.device_plan()).items():
+                if k in KERNELS and cl and not cnt[k]:
+                    raise AssertionError(f"col parts {limit}: {k} never "
+                                         f"launched ({cnt})")
+        gate(f"col parts {limit}", y.cpu().numpy(), ref)
+        ms = graph_ms(lambda: op(xd))
+        eager = cuda_ms(lambda: op(xd), iters=20)
+        rows.append(dict(limit=limit, parts=len(parts),
+                         plan_mb=op.summary["plan_mbytes"], build_s=build_s,
+                         ms=ms, eager_ms=eager,
+                         launches={k: v for k, v in cnt.items() if v}))
+        log(f"arms col parts {csr.m}x{csr.n} nnz {csr.nnz}, "
+            f"max_cols_per_plan {limit}: {len(parts)} part(s), "
+            f"{op.summary['plan_mbytes']} MB, built in {build_s:.2f} s; "
+            f"gates ok; {ms:.4f} ms (graph replay), {eager:.4f} ms eager; "
+            f"launches {json.dumps(rows[-1]['launches'])} [{card}]")
+        del op, y
+    out["col_parts"] = rows
+    return out, by_kernel
 
 
 def main() -> int:
@@ -2194,8 +2438,17 @@ def main() -> int:
     log(f"phase 14 (multi-process and routing): "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # 15. the planner's other arms and the column parts
+    t_phase = time.perf_counter()
+    arms, arm_kernels = arms_phase(dev, card)
+    for r in results:
+        if r["name"] in arm_kernels:
+            r["arms"] = arm_kernels[r["name"]]
+    log(f"phase 15 (planner arms and column parts): "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
     log(json.dumps({"kernels": results, "xla": xla, "distributed": dist,
-                    "multiprocess": mp, "routing": routing}))
+                    "multiprocess": mp, "routing": routing, "arms": arms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,7 @@ order of float32 atomic adds varies from run to run; 1e-12 for the f64
 kernels (float64 atomics), whose operator is held to the float64 golden
 at max |y - golden| / (1 + |A|·|x|) <= 1e-12."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1378,3 +1379,168 @@ def test_distributed_across_cards(name, device):
             else set(range(0, ncard, ncard // 2)))
         ms, eager = time_op(op, x, reps=3, iters=5)
         assert ms == eager > 0
+
+
+# the reference planner's other arms, from the plan files it writes
+# (tests/make_arm_plans.py; the port builds neither): the prefix route of
+# the dense and W-classes (meta rows past the class's own, which
+# dense.cu, sparse.cu, dense_spmm.cu and sparse_spmm.cu skip by taking
+# the meta row count as their stride) and the offs and roll stream
+# scatter encodings (planes no stream kernel reads: both read erow)
+ARM_DTYPES = {"f32": torch.float32, "bf16": BF16}
+
+
+def _arm_op(name, arm, dtype, device):
+    """(csr, operator) of the committed reference plan file of matrix
+    `name` under `arm`, in `dtype` (bf16: as_bf16 of the f32 file's plan,
+    the operator's own way; f64: the reference's df64 file)."""
+    from make_arm_plans import FIXTURES, MANIFEST, matrix
+    from tilespmv_tpu_torch.core.serialize import load_lane_plan
+    from tilespmv_tpu_torch.ops.cuda import lane_plan
+    fdt = "f64" if dtype == torch.float64 else "f32"
+    spec, = [e for e in json.loads(MANIFEST.read_text())
+             if e["file"] == f"{name}_{arm}_{fdt}.npz"]
+    plan = load_lane_plan(str(FIXTURES / spec["file"]))
+    if dtype == BF16:
+        plan = lane_plan.as_bf16(plan)
+    return (matrix(generate, spec),
+            TileSpMV.from_plan(plan, device=device, dtype=dtype))
+
+
+def _run_pair(key, wrap, plain, cls, xp, ylen, tol) -> None:
+    """One launch of `key` on class `cls` against its plain version."""
+    rhs = tuple(xp.shape[1:])
+    before = kernels.launch_counts()[key]
+    yk = wrap(cls, xp, torch.zeros((ylen,) + rhs, device=xp.device,
+                                   dtype=xp.dtype))
+    assert kernels.launch_counts()[key] == before + 1
+    yp = plain(cls, xp, torch.zeros((ylen,) + rhs, device=xp.device,
+                                    dtype=xp.dtype))
+    torch.cuda.synchronize()
+    err = float((yk - yp).abs().max())
+    assert err <= tol * max(1.0, float(yp.abs().max())), (key, err)
+    assert float(yp.abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", sorted(ARM_DTYPES))
+@pytest.mark.parametrize("name", ["mixed_medium", "w96"])
+def test_prefix_route_kernels_match_plain_versions(name, dtype, device):
+    """The dense and W-class SpMV and SpMM (k = 2, 8) kernels on the
+    reference's prefix plans (lane 0 inert, 2 * rpp boundary rows after
+    the class's meta rows) against their plain versions, 1e-5 of max(1,
+    max|plain|); the operator against the float64 golden."""
+    dt = ARM_DTYPES[dtype]
+    csr, op = _arm_op(name, "prefix", dt, device)
+    plan = op.device_plan()
+    routed = [c for c in (plan.dense, *plan.sparses) if c is not None]
+    assert routed and all(c.route == "prefix" for c in routed)
+    sfx = "_bf16" if dt == BF16 else ""
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    for k in (None, 2, 8):
+        xr = np.random.default_rng(k or 0).uniform(
+            -1, 1, (csr.n,) if k is None else (csr.n, k))
+        xp = reference.pad_x(plan, torch.from_numpy(xr).to(device, dt))
+        for kind in ("dense", "sparse"):
+            key, wrap, plain = ((kind, *PAIRS[kind]) if k is None
+                                else MM_PAIRS[kind])
+            for cls in _classes(plan)[kind]:
+                if cls is not None:
+                    _run_pair(key + sfx, wrap, plain, cls, xp, ylen, 1e-5)
+    xb = _bench_x(csr.n)
+    gold = csr.matvec(xb.astype(np.float64))
+    if dt == BF16:
+        _bf16_gate(op(xb), gold)
+    else:
+        np.testing.assert_allclose(op(xb).cpu().numpy(), gold, rtol=2e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64", "bf16"])
+@pytest.mark.parametrize("arm", ["offs", "roll"])
+def test_stream_kernels_on_scatter_arms(arm, dtype, device):
+    """stream.cu (and stream2.cu at k = 8, f32 and bf16) on the
+    reference's plans of the offs and roll encodings: every class's erow
+    equal to the port's rounds plan's, each kernel against its plain
+    version (1e-5; f64 1e-12)."""
+    dt = {**ARM_DTYPES, "f64": torch.float64}[dtype]
+    csr, op = _arm_op("power_law", arm, dt, device)
+    rounds = TileSpMV(csr, device=device, dtype=dt).device_plan()
+    plan = op.device_plan()
+    streams = [s for s in (plan.stream, plan.stream2) if s is not None]
+    assert streams and all(s.scatter == arm for s in streams)
+    for st, r in zip(streams, (rounds.stream, rounds.stream2)):
+        assert torch.equal(st.erow, r.erow)
+    sfx = {"f32": "", "f64": "_f64", "bf16": "_bf16"}[dtype]
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    for k in ((None,) if dt == torch.float64 else (None, 8)):
+        xr = np.random.default_rng(3).uniform(
+            -1, 1, (csr.n,) if k is None else (csr.n, k))
+        xp = reference.pad_x(plan, torch.from_numpy(xr).to(device, dt))
+        key, wrap, plain = (("stream", *PAIRS["stream"]) if k is None
+                            else MM_PAIRS["stream"])
+        for st in streams:
+            _run_pair(key + sfx, wrap, plain, st, xp, ylen, tol)
+
+
+def test_meta_stride_and_planes_that_do_not_match_raise(device):
+    """A prefix class whose route says "onehot", and an offs stream class
+    whose scatter says "rounds", raise in their wrappers on the card; the
+    C entries refuse a meta row count below the class's own rows."""
+    from tilespmv_tpu_torch.ops.cuda import build
+    csr, op = _arm_op("mixed_medium", "prefix", torch.float32, device)
+    plan = op.device_plan()
+    xp = reference.pad_x(plan, torch.zeros(csr.n, device=device))
+    ylen = max(plan.y_padded_len, plan.n_stream_windows * 1024)
+    y = torch.zeros(ylen, device=device)
+    for wrap, cls in ((kernels.dense_spmv, plan.dense),
+                      (kernels.sparse_spmv, plan.sparses[0])):
+        with pytest.raises(ValueError, match="meta"):
+            wrap(dataclasses.replace(cls, route="onehot"), xp, y)
+    for wrap, cls in ((kernels.dense_spmm, plan.dense),
+                      (kernels.sparse_spmm, plan.sparses[0])):
+        with pytest.raises(ValueError, match="meta"):
+            wrap(dataclasses.replace(cls, route="onehot"),
+                 xp[:, None].repeat(1, 2).contiguous(),
+                 torch.zeros(ylen, 2, device=device))
+    s = plan.sparses[0]
+    p = kernels._p
+    err = build.load().tsp_sparse(
+        p(s.val), p(s.meta), p(s.pb), p(s.cw), p(xp), p(y),
+        s.val.shape[0], s.width, s.t_lanes, 2, s.k_panels, s.c_batch,
+        kernels._stream())
+    assert err != 0
+    d = plan.dense
+    err = build.load().tsp_dense(
+        p(d.val), p(d.meta), p(d.cmask), p(d.groups), d.groups.shape[0],
+        p(d.pb), p(d.cw), p(xp), p(y), d.t_lanes, 1, d.k_panels, d.c_batch,
+        kernels._stream())
+    assert err != 0
+    csr, op = _arm_op("power_law", "offs", torch.float32, device)
+    offs = op.device_plan()
+    xp = reference.pad_x(offs, torch.zeros(csr.n, device=device))
+    y = torch.zeros(max(offs.y_padded_len, offs.n_stream_windows * 1024),
+                    device=device)
+    with pytest.raises(ValueError, match="planes"):
+        kernels.stream_spmv(dataclasses.replace(offs.stream,
+                                                scatter="rounds"), xp, y)
+
+
+def test_column_partitioned_operator_on_the_card(device):
+    """max_cols_per_plan: the parts' partial y's summed on the card, y
+    and matmat at k = 8 against the float64 golden; no partitioning by
+    default."""
+    csr = generate.rectangular(2048, 65536, 8, seed=23)
+    assert TileSpMV(csr, device=device).parts is None
+    op = TileSpMV(csr, device=device, max_cols_per_plan=16384)
+    assert len(op.parts) == 4 and op.device.type == "cuda"
+    xb = _bench_x(csr.n)
+    np.testing.assert_allclose(op(xb).cpu().numpy(),
+                               csr.matvec(xb.astype(np.float64)),
+                               rtol=2e-4, atol=1e-4)
+    xs = _bench_x(csr.n, 8)
+    got = op.matmat(xs).cpu().numpy()
+    for r in range(8):
+        np.testing.assert_allclose(got[:, r],
+                                   csr.matvec(xs[:, r].astype(np.float64)),
+                                   rtol=2e-4, atol=1e-4)

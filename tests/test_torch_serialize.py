@@ -11,7 +11,11 @@ writes its own, 2-byte void items), the port loads the reference's bf16
 files (whose value arrays the reference's own loader gives back as
 `|V2`, not bfloat16: a fault of the reference, pinned here) as bf16
 bits, and the reference loads the port's bf16 files as it loads its
-own."""
+own. Files of the reference planner's other arms (the offs and roll
+stream scatter encodings, the prefix dense route), which the port loads
+but does not build, load and run too; the committed ones under
+tests/fixtures/arm_plans (which the card tests and chip_smoke.py run)
+still hold what the reference writes."""
 import json
 
 import numpy as np
@@ -221,6 +225,79 @@ def test_from_plan_on_loaded_plan_gives_the_same_y(name, dtype, tmp_path):
         TileSpMV.from_plan(t_ser.load_lane_plan(p), device="cpu",
                            dtype=torch.float64 if dtype == torch.float32
                            else torch.float32)
+
+
+@pytest.mark.parametrize("arm", ["offs", "roll", "prefix"])
+def test_reference_arm_plan_files_load_and_run(arm, tmp_path, monkeypatch):
+    """A file the reference writes under STREAM_SCATTER offs or roll, or
+    DENSE_ROUTE prefix (mixed_deep: a dense class, a W24 class and a
+    stream), loads as interop's carry of the reference's plan, keeps its
+    arm, round-trips through the port's own file, and runs through
+    from_plan to the port's own plan's y."""
+    from tilespmv_tpu.ops.pallas import stream_plan as j_stream
+    default = TileSpMV(_tm("t", "mixed_deep"), device="cpu")
+    monkeypatch.setattr(*((j_lane, "DENSE_ROUTE") if arm == "prefix"
+                          else (j_stream, "STREAM_SCATTER")), arm)
+    _, jplan = _plans("mixed_deep", np.float32)
+    pj, pt = str(tmp_path / "j.npz"), str(tmp_path / "t.npz")
+    j_ser.save_lane_plan(pj, jplan)
+    loaded = t_ser.load_lane_plan(pj)
+    assert_same(loaded, lane_plan_from_jax(jplan))
+    if arm == "prefix":
+        assert {c.route for c in (loaded.dense, *loaded.sparses)} == {arm}
+    else:
+        assert loaded.stream.scatter == arm
+    t_ser.save_lane_plan(pt, loaded)
+    assert_same(t_ser.load_lane_plan(pt), loaded)
+    op = TileSpMV.from_plan(loaded, device="cpu")
+    x = np.random.default_rng(6).uniform(-1, 1, op.shape[1])
+    y, want = op(x), default(x)
+    assert float((y - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+
+
+def _arm_files():
+    from make_arm_plans import MANIFEST
+    return json.loads(MANIFEST.read_text())
+
+
+@pytest.mark.parametrize("spec", _arm_files(), ids=lambda s: s["file"])
+def test_committed_arm_plan_files_are_the_references(spec):
+    """Each file under tests/fixtures/arm_plans holds, array for array,
+    what the reference's save_lane_plan writes for its manifest entry
+    (tests/make_arm_plans.py), and loads as a plan of its arm whose y
+    (through from_plan; bf16: lane_plan.as_bf16 of the f32 plan) is the
+    port's own plan's: f32 and f64 within 1e-5 (f64 1e-12) of max(1,
+    max|y|), bf16 against the port's bf16 operator within 2^-7 |y| +
+    1e-5 max(1, max|y|), one bf16 ulp either way."""
+    from make_arm_plans import FIXTURES, matrix, reference_arrays
+    path = FIXTURES / spec["file"]
+    want = reference_arrays(spec)
+    with np.load(path) as z:
+        assert sorted(z.files) == sorted(want)
+        for k in want:
+            assert_same(z[k], want[k], k)
+    plan = t_ser.load_lane_plan(str(path))
+    if spec["arm"] == "prefix":
+        assert {c.route for c in (plan.dense, *plan.sparses)} == {"prefix"}
+    else:
+        assert {s.scatter for s in (plan.stream, plan.stream2)
+                if s is not None} == {spec["arm"]}
+    csr = matrix(t_gen, spec)
+    x = np.random.default_rng(8).uniform(-1, 1, csr.n)
+    dtypes = ([torch.float64] if spec["dtype"] == "f64"
+              else [torch.float32, torch.bfloat16])
+    for dt in dtypes:
+        arm_plan = t_lane.as_bf16(plan) if dt == torch.bfloat16 else plan
+        y = TileSpMV.from_plan(arm_plan, device="cpu", dtype=dt)(x).double()
+        want_y = TileSpMV(csr, device="cpu", dtype=dt)(x).double()
+        scale = max(1.0, float(want_y.abs().max()))
+        err = (y - want_y).abs()
+        if dt == torch.bfloat16:
+            assert bool((err <= 2 ** -7 * want_y.abs() + 1e-5 * scale).all())
+        else:
+            tol = 1e-12 if dt == torch.float64 else 1e-5
+            assert float(err.max()) <= tol * scale, dt
 
 
 def test_load_refuses_unknown_versions(tmp_path):

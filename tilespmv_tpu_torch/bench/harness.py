@@ -137,15 +137,10 @@ def benchmark_op(op: TileSpMV, x: Optional[np.ndarray] = None,
     spread = float((p84 - p16) / ms) if ms > 0 else math.inf
     dt = max(ms, 1e-9) / 1e3
     vbytes = torch.finfo(op.dtype).bits // 8
-    plan = op.device_plan()
     if op.backend == "xla":
         nbytes = profiling.csr_bound(op.nnz, m, n, vbytes)["bytes"]
     else:
-        classes = [c for c in (plan.dense, plan.band, *plan.sparses,
-                               plan.stream, plan.stream2) if c is not None]
-        if plan.residual.val.shape[0]:
-            classes.append(plan.residual)
-        nbytes = profiling.class_bound(classes)["bytes"]
+        nbytes = profiling.class_bound(profiling.op_classes(op))["bytes"]
     gflops = op.flops() / dt / 1e9
     reliable = (ms > 0 and spread <= max_spread
                 and not gflops > roofline.peak_compute_gflops(chip, vbytes))

@@ -243,8 +243,9 @@ def _sweep_dir(args, dev, dtype, config) -> int:
             else:
                 op = TileSpMV(_load(path), device=dev, dtype=dtype,
                               config=config, backend=args.backend)
-                # plan files hold lane plans: only pallas plans are cached
-                if cpath and op.backend == "pallas":
+                # plan files hold one lane plan: only pallas plans of
+                # one part are cached
+                if cpath and op.backend == "pallas" and op.parts is None:
                     save_lane_plan(cpath, op.device_plan())
             res = benchmark_op(
                 op, name=os.path.basename(path),
@@ -397,9 +398,9 @@ def main(argv=None) -> int:
     op = TileSpMV(tm, device=dev, dtype=dtype, backend=args.backend)
     print(f"plan built in {time.perf_counter() - t0:.3f}s")
     if args.save_plan:
-        if op.backend != "pallas":
-            print("--save-plan requires the pallas backend",
-                  file=sys.stderr)
+        if op.backend != "pallas" or op.parts is not None:
+            print("--save-plan requires the (non-partitioned) pallas "
+                  "backend", file=sys.stderr)
             return 2
         save_lane_plan(args.save_plan, op.device_plan())
         print(f"plan saved to {args.save_plan}")

@@ -70,15 +70,12 @@ def _f64(*parts) -> np.ndarray:
 
 
 def stream_chunks_from_jax(st) -> StreamChunks:
-    """This package's StreamChunks holding `st`'s arrays (rounds scatter
-    only; a df64 class as f64 values val + val_lo), with the per-entry
-    rows `erow` derived from its planes where `st` has none; None for
-    None."""
+    """This package's StreamChunks holding `st`'s arrays (planes of any
+    scatter encoding; a df64 class as f64 values val + val_lo), with the
+    per-entry rows `erow` derived from its planes where `st` has none;
+    None for None."""
     if st is None:
         return None
-    if st.scatter != "rounds":
-        raise NotImplementedError(
-            "only stream classes with the rounds scatter are ported")
     if not st.df64:
         if st.segmask is not None:
             raise NotImplementedError("segmask on an f32 stream class")
@@ -111,11 +108,8 @@ def _band(bd):
 
 def lane_plan_from_jax(plan) -> LanePlan:
     """This package's LanePlan holding `plan`'s arrays (an f32 or bf16
-    plan, or a df64 one as this package's f64 plan)."""
-    if plan.dense is not None and plan.dense.route != "onehot":
-        raise NotImplementedError("the prefix dense route is not ported")
-    if any(s.route != "onehot" for s in plan.sparses):
-        raise NotImplementedError("the prefix W-class route is not ported")
+    plan, or a df64 one as this package's f64 plan), of any dense route
+    and stream scatter encoding."""
     return LanePlan(
         dense=_dense(plan.dense),
         band=_band(plan.band),

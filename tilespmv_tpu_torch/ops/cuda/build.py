@@ -31,23 +31,23 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # success), a launch's being cudaGetLastError() right after it
 ENTRY_POINTS = {
     "tsp_band": [_P] * 6 + [_I] * 3 + [_P],
-    "tsp_dense": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
-    "tsp_sparse": [_P] * 6 + [_I] * 5 + [_P],
+    "tsp_dense": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "tsp_sparse": [_P] * 6 + [_I] * 6 + [_P],
     "tsp_stream": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_f64": [_P] * 6 + [_I] * 3 + [_P],
-    "tsp_dense_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    "tsp_dense_f64": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
     "tsp_stream_f64": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_spmm": [_P] * 6 + [_I] * 4 + [_P],
-    "tsp_dense_spmm": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "tsp_sparse_spmm": [_P] * 6 + [_I] * 6 + [_P],
+    "tsp_dense_spmm": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "tsp_sparse_spmm": [_P] * 6 + [_I] * 7 + [_P],
     "tsp_stream2": [_P] * 10 + [_I] * 6 + [_P],
     "tsp_band_bf16": [_P] * 6 + [_I] * 3 + [_P],
-    "tsp_dense_bf16": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
-    "tsp_sparse_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    "tsp_dense_bf16": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    "tsp_sparse_bf16": [_P] * 6 + [_I] * 6 + [_P],
     "tsp_stream_bf16": [_P] * 10 + [_I] * 4 + [_P],
     "tsp_band_spmm_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    "tsp_dense_spmm_bf16": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    "tsp_sparse_spmm_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    "tsp_dense_spmm_bf16": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    "tsp_sparse_spmm_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "tsp_stream2_bf16": [_P] * 10 + [_I] * 6 + [_P],
     "tsp_mb_gather": [_P] * 3 + [_I] * 3 + [_P],
     "tsp_mb_gather_grid": [_I, _PI, _PI],

@@ -7,7 +7,11 @@
 //   yc[i] = sum_j val[c, j, i, t] * x[tilecol*16 + j],
 //   tilecol = pb[step*K + (xloc >> 8)]*256 + (xloc & 255),
 // added to y[(cw[step]*256 + meta[c, 1, t])*16 + i]. Lanes with
-// xloc < 0 are inert padding.
+// xloc < 0 are inert padding. meta holds `meta_rows` rows a chunk: 2 on
+// a one-hot plan, 2 + 2*ceil(256/T) on a prefix one (its boundary rows,
+// which this kernel does not read: every lane routes by its own row 1;
+// the chunk's lanes being sorted by row changes no sum), so chunk c's
+// rows start at meta + c*meta_rows*T.
 //
 // Bound: the bytes of the active tiles' values (1 KB a tile in f32, 2 KB
 // in f64, for 256 FMAs). At one RHS a value feeds one FMA (0.5 flop/B in
@@ -60,13 +64,13 @@ dense_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
              const int* __restrict__ cmask, const int* __restrict__ groups,
              const int* __restrict__ pb, const int* __restrict__ cw,
              const V* __restrict__ x, V* __restrict__ y, int t_lanes,
-             int k_panels, int c_batch) {
+             int meta_rows, int k_panels, int c_batch) {
   __shared__ V xs[kLanes * (kB + 1)];   // +1: no bank conflicts over l
   const int g = groups[blockIdx.x];
   const int c = g / t_lanes;
   const int t0 = g - c * t_lanes;
   const int step = c / c_batch;
-  const int* mc = meta + (long long)c * 2 * t_lanes + t0;
+  const int* mc = meta + (long long)c * meta_rows * t_lanes + t0;
   const int l = threadIdx.x % kLanes;
   const int i = blockIdx.y * kWarps + threadIdx.x / kLanes;
   const bool active = mc[l] >= 0;
@@ -101,15 +105,17 @@ dense_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
 template <typename Val, typename V>
 int launch(const Val* val, const int* meta, const int* cmask,
            const int* groups, int nblocks, const int* pb, const int* cw,
-           const V* x, V* y, int t_lanes, int k_panels, int c_batch,
-           void* stream) {
-  if (t_lanes % kLanes) return static_cast<int>(cudaErrorInvalidValue);
+           const V* x, V* y, int t_lanes, int meta_rows, int k_panels,
+           int c_batch, void* stream) {
+  if (t_lanes % kLanes || meta_rows < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (nblocks > 0) {
     dense_kernel<Val>
         <<<dim3(static_cast<unsigned>(nblocks), kB / kWarps),
            kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-            val, meta, cmask, groups, pb, cw, x, y, t_lanes, k_panels,
-            c_batch);
+            val, meta, cmask, groups, pb, cw, x, y, t_lanes, meta_rows,
+            k_panels, c_batch);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -119,26 +125,28 @@ int launch(const Val* val, const int* meta, const int* cmask,
 extern "C" int tsp_dense(const float* val, const int* meta, const int* cmask,
                          const int* groups, int ngroups, const int* pb,
                          const int* cw, const float* x, float* y,
-                         int t_lanes, int k_panels, int c_batch,
-                         void* stream) {
+                         int t_lanes, int meta_rows, int k_panels,
+                         int c_batch, void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
-                k_panels, c_batch, stream);
+                meta_rows, k_panels, c_batch, stream);
 }
 
 extern "C" int tsp_dense_f64(const double* val, const int* meta,
                              const int* cmask, const int* groups,
                              int ngroups, const int* pb, const int* cw,
                              const double* x, double* y, int t_lanes,
-                             int k_panels, int c_batch, void* stream) {
+                             int meta_rows, int k_panels, int c_batch,
+                             void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
-                k_panels, c_batch, stream);
+                meta_rows, k_panels, c_batch, stream);
 }
 
 extern "C" int tsp_dense_bf16(const __nv_bfloat16* val, const int* meta,
                               const int* cmask, const int* groups,
                               int ngroups, const int* pb, const int* cw,
                               const float* x, float* y, int t_lanes,
-                              int k_panels, int c_batch, void* stream) {
+                              int meta_rows, int k_panels, int c_batch,
+                              void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
-                k_panels, c_batch, stream);
+                meta_rows, k_panels, c_batch, stream);
 }

@@ -8,6 +8,9 @@
 //   tilecol = pb[step*kp + (xloc >> 8)]*256 + (xloc & 255),
 // added to Y[((cw[step]*256 + meta[c, 1, t])*16 + i)*K + r], X (rows, K)
 // and Y (ylen, K) row-major. Lanes with xloc < 0 are inert padding.
+// Chunk c's meta rows start at meta + c*meta_rows*T: 2 rows a chunk on a
+// one-hot plan, 2 + 2*ceil(256/T) on a prefix one, whose boundary rows
+// this kernel does not read (every lane routes by its own row 1).
 //
 // Bound: device-memory bytes (the active tiles' values, 1 KB a tile, read
 // once for all K columns; their X blocks and Y rows). The planner pads
@@ -64,8 +67,8 @@ dense_spmm_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
                   const int* __restrict__ cmask,
                   const int* __restrict__ groups, const int* __restrict__ pb,
                   const int* __restrict__ cw, const float* __restrict__ x,
-                  float* __restrict__ y, int t_lanes, int k_panels,
-                  int c_batch) {
+                  float* __restrict__ y, int t_lanes, int meta_rows,
+                  int k_panels, int c_batch) {
   constexpr int XS = xs_stride<K>();
   constexpr int kVec = kB * K / 4;     // float4 of a tile's X block
   __shared__ __align__(16) float xs[kLanes * XS];
@@ -73,7 +76,7 @@ dense_spmm_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
   const int c = g / t_lanes;
   const int t0 = g - c * t_lanes;
   const int step = c / c_batch;
-  const int* mc = meta + (long long)c * 2 * t_lanes + t0;
+  const int* mc = meta + (long long)c * meta_rows * t_lanes + t0;
   const int l = threadIdx.x % kLanes;
   const int q = threadIdx.x / kLanes;
   const int i = blockIdx.y * kWarps + q;
@@ -117,16 +120,18 @@ dense_spmm_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
 template <typename Val>
 int launch(const Val* val, const int* meta, const int* cmask,
            const int* groups, int ngroups, const int* pb, const int* cw,
-           const float* x, float* y, int t_lanes, int k_panels, int c_batch,
-           int k_rhs, void* stream) {
-  if (t_lanes % kLanes) return static_cast<int>(cudaErrorInvalidValue);
+           const float* x, float* y, int t_lanes, int meta_rows,
+           int k_panels, int c_batch, int k_rhs, void* stream) {
+  if (t_lanes % kLanes || meta_rows < 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool ok = tsp::with_k(k_rhs, [&](auto kc) {
     if (ngroups > 0) {
       dense_spmm_kernel<decltype(kc)::value, Val>
           <<<dim3(static_cast<unsigned>(ngroups), kB / kWarps),
              kLanes * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-              val, meta, cmask, groups, pb, cw, x, y, t_lanes, k_panels,
-              c_batch);
+              val, meta, cmask, groups, pb, cw, x, y, t_lanes, meta_rows,
+              k_panels, c_batch);
     }
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -139,18 +144,18 @@ extern "C" int tsp_dense_spmm(const float* val, const int* meta,
                               const int* cmask, const int* groups,
                               int ngroups, const int* pb, const int* cw,
                               const float* x, float* y, int t_lanes,
-                              int k_panels, int c_batch, int k_rhs,
-                              void* stream) {
+                              int meta_rows, int k_panels, int c_batch,
+                              int k_rhs, void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
-                k_panels, c_batch, k_rhs, stream);
+                meta_rows, k_panels, c_batch, k_rhs, stream);
 }
 
 extern "C" int tsp_dense_spmm_bf16(const __nv_bfloat16* val, const int* meta,
                                    const int* cmask, const int* groups,
                                    int ngroups, const int* pb, const int* cw,
                                    const float* x, float* y, int t_lanes,
-                                   int k_panels, int c_batch, int k_rhs,
-                                   void* stream) {
+                                   int meta_rows, int k_panels, int c_batch,
+                                   int k_rhs, void* stream) {
   return launch(val, meta, cmask, groups, ngroups, pb, cw, x, y, t_lanes,
-                k_panels, c_batch, k_rhs, stream);
+                meta_rows, k_panels, c_batch, k_rhs, stream);
 }

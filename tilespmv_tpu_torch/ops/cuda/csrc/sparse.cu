@@ -8,7 +8,10 @@
 // slot of rows <= r in word r/4, byte r%4). Row r of the tile sums slots
 // rend[r-1]+1 .. rend[r] of val * x[tilecol*16 + col], tilecol =
 // pb[step*K + (xloc >> 8)]*256 + (xloc & 255); inert lanes (xloc < 0)
-// are skipped.
+// are skipped. A chunk holds `meta_rows` meta rows: 2 + W/8 + 4 on a
+// one-hot plan, 2*ceil(256/T) more on a prefix one (its boundary rows,
+// which this kernel does not read: every lane routes by its own row 1),
+// so chunk c's rows start at meta + c*meta_rows*T.
 //
 // Bound: device-memory bytes (~5 bytes per stored entry, x and y in L2).
 // At 16-80 entries a tile, a thread per tile would walk a chain of
@@ -64,7 +67,8 @@ __global__ void __launch_bounds__(kLanes * kMaxWarps)
 sparse_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
               const int* __restrict__ pb, const int* __restrict__ cw,
               const float* __restrict__ x, float* __restrict__ y,
-              int width, int t_lanes, int k_panels, int c_batch) {
+              int width, int t_lanes, int meta_rows, int k_panels,
+              int c_batch) {
   __shared__ float xs[kLanes * kPad];
   __shared__ float ys[kLanes * kPad];
   __shared__ int srow[kLanes];        // window-local tile row, -1 inert
@@ -75,7 +79,7 @@ sparse_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
   const int t0 = (blockIdx.x - c * ngroups) * kLanes;
   const int step = c / c_batch;
   const int ncw = width / 8;
-  const int* mc = meta + (long long)c * (2 + ncw + 4) * t_lanes + t0;
+  const int* mc = meta + (long long)c * meta_rows * t_lanes + t0;
   const int l = threadIdx.x % kLanes;
   const int s0 = threadIdx.x / kLanes * kSlots;
   const int xloc = mc[l];
@@ -199,16 +203,17 @@ sparse_kernel(const Val* __restrict__ val, const int* __restrict__ meta,
 template <typename Val>
 int launch(const Val* val, const int* meta, const int* pb, const int* cw,
            const float* x, float* y, int nchunks, int width, int t_lanes,
-           int k_panels, int c_batch, void* stream) {
+           int meta_rows, int k_panels, int c_batch, void* stream) {
   if (width < 8 || width > kMaxW || width % 8 || t_lanes % kLanes ||
-      k_panels < 1 || k_panels > kMaxK) {
+      meta_rows < 2 + width / 8 + 4 || k_panels < 1 || k_panels > kMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nchunks > 0) {
     const int warps = (width + kSlots - 1) / kSlots;
     sparse_kernel<Val><<<nchunks * (t_lanes / kLanes), kLanes * warps, 0,
                          static_cast<cudaStream_t>(stream)>>>(
-        val, meta, pb, cw, x, y, width, t_lanes, k_panels, c_batch);
+        val, meta, pb, cw, x, y, width, t_lanes, meta_rows, k_panels,
+        c_batch);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -217,16 +222,18 @@ int launch(const Val* val, const int* meta, const int* pb, const int* cw,
 
 extern "C" int tsp_sparse(const float* val, const int* meta, const int* pb,
                           const int* cw, const float* x, float* y,
-                          int nchunks, int width, int t_lanes, int k_panels,
-                          int c_batch, void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
-                c_batch, stream);
+                          int nchunks, int width, int t_lanes,
+                          int meta_rows, int k_panels, int c_batch,
+                          void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes,
+                meta_rows, k_panels, c_batch, stream);
 }
 
 extern "C" int tsp_sparse_bf16(const __nv_bfloat16* val, const int* meta,
                                const int* pb, const int* cw, const float* x,
                                float* y, int nchunks, int width, int t_lanes,
-                               int k_panels, int c_batch, void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
-                c_batch, stream);
+                               int meta_rows, int k_panels, int c_batch,
+                               void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes,
+                meta_rows, k_panels, c_batch, stream);
 }

@@ -8,6 +8,9 @@
 // sums, for each column c < K, its own slots rend[q-1]+1 .. rend[q] of
 // val * X[(tilecol*16 + col)*K + c] into Y[((cw*256 + lrow)*16 + q)*K + c],
 // X (rows, K) and Y (ylen, K) row-major; inert lanes (xloc < 0) skip.
+// Chunk c's meta rows start at meta + c*meta_rows*T: `meta_rows` is
+// 2 + W/8 + 4, and 2*ceil(256/T) more on a prefix plan, whose boundary
+// rows this kernel does not read (every lane routes by its own row 1).
 //
 // Bound: device-memory bytes (~5 bytes per stored entry, read once for
 // all K columns; X and Y in L2). The TPU kernel decoded the nibble
@@ -112,7 +115,7 @@ sparse_spmm_kernel(const Val* __restrict__ val,
                    const int* __restrict__ meta, const int* __restrict__ pb,
                    const int* __restrict__ cw, const float* __restrict__ x,
                    float* __restrict__ y, int width, int t_lanes,
-                   int k_panels, int c_batch) {
+                   int meta_rows, int k_panels, int c_batch) {
   constexpr int XS = xs_stride<K>();
   constexpr int YS = ys_stride<K>();
   constexpr int kTile = kB * K;      // floats of a tile's X block or sums
@@ -128,7 +131,7 @@ sparse_spmm_kernel(const Val* __restrict__ val,
   const int t0 = (blockIdx.x - c * ngroups) * kLanes;
   const int step = c / c_batch;
   const int ncw = width / 8;
-  const int* mc = meta + (long long)c * (2 + ncw + 4) * t_lanes + t0;
+  const int* mc = meta + (long long)c * meta_rows * t_lanes + t0;
   const int l = threadIdx.x % kLanes;
   const int q = threadIdx.x / kLanes;
   const int s0 = q * kSlots;
@@ -267,9 +270,11 @@ sparse_spmm_kernel(const Val* __restrict__ val,
 template <typename Val>
 int launch(const Val* val, const int* meta, const int* pb, const int* cw,
            const float* x, float* y, int nchunks, int width, int t_lanes,
-           int k_panels, int c_batch, int k_rhs, void* stream) {
+           int meta_rows, int k_panels, int c_batch, int k_rhs,
+           void* stream) {
   if (width < 8 || width > kMaxW || width % 8 || t_lanes % kLanes ||
-      k_panels < 1 || k_panels > kMaxPanels) {
+      meta_rows < 2 + width / 8 + 4 || k_panels < 1 ||
+      k_panels > kMaxPanels) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int err = static_cast<int>(cudaSuccess);
@@ -285,7 +290,8 @@ int launch(const Val* val, const int* meta, const int* pb, const int* cw,
       sparse_spmm_kernel<K, Val>
           <<<nchunks * (t_lanes / kLanes), kLanes * groups, smem_bytes<K>(),
              static_cast<cudaStream_t>(stream)>>>(
-          val, meta, pb, cw, x, y, width, t_lanes, k_panels, c_batch);
+          val, meta, pb, cw, x, y, width, t_lanes, meta_rows, k_panels,
+          c_batch);
       err = static_cast<int>(cudaGetLastError());
     }
   });
@@ -297,17 +303,18 @@ int launch(const Val* val, const int* meta, const int* pb, const int* cw,
 extern "C" int tsp_sparse_spmm(const float* val, const int* meta,
                                const int* pb, const int* cw, const float* x,
                                float* y, int nchunks, int width, int t_lanes,
-                               int k_panels, int c_batch, int k_rhs,
-                               void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
-                c_batch, k_rhs, stream);
+                               int meta_rows, int k_panels, int c_batch,
+                               int k_rhs, void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes,
+                meta_rows, k_panels, c_batch, k_rhs, stream);
 }
 
 extern "C" int tsp_sparse_spmm_bf16(const __nv_bfloat16* val, const int* meta,
                                     const int* pb, const int* cw,
                                     const float* x, float* y, int nchunks,
-                                    int width, int t_lanes, int k_panels,
-                                    int c_batch, int k_rhs, void* stream) {
-  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes, k_panels,
-                c_batch, k_rhs, stream);
+                                    int width, int t_lanes, int meta_rows,
+                                    int k_panels, int c_batch, int k_rhs,
+                                    void* stream) {
+  return launch(val, meta, pb, cw, x, y, nchunks, width, t_lanes,
+                meta_rows, k_panels, c_batch, k_rhs, stream);
 }

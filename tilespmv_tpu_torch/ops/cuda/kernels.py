@@ -32,8 +32,8 @@ import ctypes
 import torch
 
 from . import build
-from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, LanePlan,
-                        acc_dtype, sparse_meta_rows)
+from .lane_plan import (DENSE_GROUP, DENSE_MROWS, PANEL_TC, ROW_WINDOW,
+                        LanePlan, acc_dtype, prefix_rows, sparse_meta_rows)
 from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         MB_SCATTER_ARMS, MB_SLABS, assemble,
                         assemble_mm,
@@ -43,7 +43,7 @@ from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
                         microbench_scatter_reference,
                         sparse_rows_reference, sparse_spmm_reference,
                         stream_rows_reference)
-from .stream_plan import LANES, SPAN_ROWS, SUBS, step_plane_rows
+from .stream_plan import LANES, SPAN_ROWS, SUBS, step_rows
 
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
 # reference fuses (tilespmv_tpu/ops/spmv.py:84)
@@ -179,7 +179,8 @@ def _check_dense(d, dev, dtype=torch.float32) -> int:
         raise ValueError("dense: chunk count not a multiple of c_batch")
     nsteps = nch // d.c_batch
     _check("dense.val", d.val, dtype, (nch, 16, 16, T), dev)
-    _check("dense.meta", d.meta, torch.int32, (nch, 2, T), dev)
+    _check("dense.meta", d.meta, torch.int32,
+           (nch, DENSE_MROWS + prefix_rows(T, d.route), T), dev)
     _check("pb", d.pb, torch.int32, (nsteps * d.k_panels,), dev)
     _check("dense.cw", d.cw, torch.int32, (nsteps,), dev)
     return nch
@@ -201,7 +202,7 @@ def _check_sparse(s, dev, dtype=torch.float32) -> int:
     nsteps = nch // s.c_batch
     _check("sparse.val", s.val, dtype, (nch, W, T), dev)
     _check("sparse.meta", s.meta, torch.int32,
-           (nch, sparse_meta_rows(W), T), dev)
+           (nch, sparse_meta_rows(W) + prefix_rows(T, s.route), T), dev)
     _check("pb", s.pb, torch.int32, (nsteps * s.k_panels,), dev)
     _check("sparse.cw", s.cw, torch.int32, (nsteps,), dev)
     return nch
@@ -215,7 +216,7 @@ def _check_stream(st, dev, dtype=torch.float32) -> int:
     _check("stream.vidx", st.vidx, torch.int16, (nsl, SUBS, LANES), dev)
     _check("stream.erow", st.erow, torch.int16, (nsl, SUBS, LANES), dev)
     _check("stream.planes", st.planes, torch.int8,
-           (nsteps, step_plane_rows(R, S), LANES), dev)
+           (nsteps, step_rows(st.scatter, R, S), LANES), dev)
     _check("stream.sbase", st.sbase, torch.int32, (nsl,), dev)
     if st.sbase2 is not None:
         _check("stream.sbase2", st.sbase2, torch.int32, (nsl,), dev)
@@ -315,8 +316,8 @@ def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     name = "dense" + _SUFFIX[dt]
     err = getattr(build.load(), "tsp_" + name)(
         _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
-        _p(d.cw), _p(x), _p(y), d.t_lanes, d.k_panels, d.c_batch,
-        _stream())
+        _p(d.cw), _p(x), _p(y), d.t_lanes, d.meta.shape[1], d.k_panels,
+        d.c_batch, _stream())
     _launched(name, err)
     return y
 
@@ -332,7 +333,8 @@ def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     name = "sparse" + _SUFFIX[dt]
     err = getattr(build.load(), "tsp_" + name)(
         _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
-        nch, s.width, s.t_lanes, s.k_panels, s.c_batch, _stream())
+        nch, s.width, s.t_lanes, s.meta.shape[1], s.k_panels, s.c_batch,
+        _stream())
     _launched(name, err)
     return y
 
@@ -387,8 +389,8 @@ def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     name = "dense_spmm" + _SUFFIX[dt]
     err = getattr(build.load(), "tsp_" + name)(
         _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
-        _p(d.cw), _p(x), _p(y), d.t_lanes, d.k_panels, d.c_batch, k,
-        _stream())
+        _p(d.cw), _p(x), _p(y), d.t_lanes, d.meta.shape[1], d.k_panels,
+        d.c_batch, k, _stream())
     _launched(name, err)
     return y
 
@@ -405,7 +407,8 @@ def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     name = "sparse_spmm" + _SUFFIX[dt]
     err = getattr(build.load(), "tsp_" + name)(
         _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
-        nch, s.width, s.t_lanes, s.k_panels, s.c_batch, k, _stream())
+        nch, s.width, s.t_lanes, s.meta.shape[1], s.k_panels, s.c_batch, k,
+        _stream())
     _launched(name, err)
     return y
 

@@ -48,6 +48,16 @@ no entries, an all-inert class, stream_plan.empty_stream_chunks),
 two-rate split), `stream_span_rows` and `stream_dual` (the stream
 geometry).
 
+The planner cuts every dense and W-class for one-hot window routing.
+The reference's "prefix" route (its DENSE_ROUTE) cuts them into chunks
+of T - 1 tiles with lane 0 inert, lanes sorted by tile row, and
+2 * ceil(256 / T) boundary rows after the class's meta rows
+(prefix_rows); such plans come in through the reference's plan files
+and plans (interop, core/serialize.py), and their classes say so in
+`route`. The H100 kernels and the plain versions route every lane by
+meta[LROW] under either route, reading meta with the class's own row
+count as its stride.
+
 The routing and chunking cost constants are the reference planner's
 (measured on its own device). They are kept unchanged so the plans stay
 identical; re-fitting them to the H100 is later work. So are its
@@ -124,6 +134,13 @@ DENSE_MROWS = 2
 # lanes of a dense-class group, a block of the H100 dense kernel (a
 # warp's lanes); every T in T_CHOICES is a multiple
 DENSE_GROUP = 32
+# window routings of a dense or W-class (the `route` field): "onehot",
+# the only one this package builds, or the reference's "prefix", whose
+# chunks keep lane 0 inert, sort their lanes by tile row and carry
+# prefix_rows boundary rows after the class's meta rows. The H100
+# kernels route every lane by meta[LROW] and read the boundary rows of
+# neither route: they take the class's meta row count as its stride
+ROUTES = ("onehot", "prefix")
 
 # band (brick) class selection
 BAND_MAX_COLS = 8
@@ -165,6 +182,14 @@ def sparse_meta_rows(width: int) -> int:
     return 2 + width // 8 + 4
 
 
+def prefix_rows(t_lanes: int, route: str) -> int:
+    """Boundary meta rows a class of `t_lanes` lanes appends under
+    `route`: 2 * ceil(ROW_WINDOW / T) for "prefix", 0 for "onehot"."""
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: one of {ROUTES}")
+    return 2 * -(-ROW_WINDOW // t_lanes) if route == "prefix" else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseChunks:
     """Densified-tile class: (nchunks, 16, 16, T) value blocks, j-major
@@ -173,7 +198,8 @@ class DenseChunks:
     package's only (the reference has no such fields), derived from val
     and meta by `with_dense_derived` for the H100 dense kernel."""
     val: Any       # (nchunks, 16, 16, T) f32, f64 or bf16 bits
-    meta: Any      # (nchunks, DENSE_MROWS, T) int32
+    meta: Any      # (nchunks, DENSE_MROWS + prefix_rows(T, route), T)
+    #                int32
     pb: Any        # (nsteps*K,) int32 x panel ids
     cw: Any        # (nsteps,) int32 output window id
     cfirst: Any    # (nsteps,) int32 1 if first step of its window
@@ -187,6 +213,8 @@ class DenseChunks:
     # (ngroups,) int32: chunk*T + first lane of each DENSE_GROUP-lane
     # group holding an active lane, ascending (dense_groups)
     groups: Any = None
+    # window routing the plan was cut for (ROUTES)
+    route: str = "onehot"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,7 +238,8 @@ class SparseChunks:
     reserved zero, entries row-sorted), 4-bit columns and row pointers
     packed into the meta rows (see sparse_meta_rows)."""
     val: Any       # (nchunks, W, T) f32 or bf16 bits
-    meta: Any      # (nchunks, sparse_meta_rows(W), T) int32
+    meta: Any      # (nchunks, sparse_meta_rows(W) + prefix_rows(T,
+    #                route), T) int32
     pb: Any        # (nsteps*K,) int32
     cw: Any        # (nsteps,) int32
     cfirst: Any    # (nsteps,) int32
@@ -219,6 +248,8 @@ class SparseChunks:
     t_lanes: int
     k_panels: int = 1
     c_batch: int = 1
+    # window routing the plan was cut for (ROUTES)
+    route: str = "onehot"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,14 +13,23 @@ it, as NumPy arrays.
   (row-of-128 << 7 | lane); bit 13 marks a dual-span slab's second
   superspan (`sbase2`);
 * the y scatter is a per-sublane inclusive prefix over lanes plus
-  plan-time **round planes**: per round t, target (q, j) of the window
-  takes csum[src, rend[src, j]] - csum[src, rstart[src, j]] with
-  src = rsrc[q, j]. Runs are split into rounds by the proper edge
-  coloring (src_sublane + target_sublane) % 8 of each (slab, lane)
-  cell, so a round never has two runs on one target;
+  plan-time int8 planes, in one of three encodings (the `scatter`
+  field, which the reference's STREAM_SCATTER picks; the entries, their
+  placement and every other array are the same in all three):
+  - "rounds" (the only one this package builds): per round t, target (q, j) of the window
+    takes csum[src, rend[src, j]] - csum[src, rstart[src, j]] with
+    src = rsrc[q, j]. Runs are split into rounds by the proper edge
+    coloring (src_sublane + target_sublane) % 8 of each (slab, lane)
+    cell, so a round never has two runs on one target;
+  - "offs": run j of sublane s ends at lane ue[s, j] and starts after
+    us[s, j]; g_d[s, l] = j routes that run to cell ((s + d) % 8, l) for
+    each static sublane offset d (OFFS_SLAB_ROWS a slab);
+  - "roll": ue_d[s, l] and us_d[s, l] bound the run of sublane s that
+    goes to cell ((s + d) % 8, l) (ROLL_SLAB_ROWS a slab);
 * `erow` (this package only, `entry_rows`) holds the same routing per
   entry slot: its output row in the window, which the H100 stream
-  kernel reads instead of the planes;
+  kernels read instead of the planes. It is derived from the planes of
+  any encoding and comes out the same in all three;
 * free-placement classes (`xmap`) drop the span alignment: each of a
   slab's 8 sublane slots maps to an arbitrary 1024-value x block of
   the window, x row = xmap[slab*64 + chunk*8 + sublane].
@@ -39,7 +48,12 @@ to nearest even; `bf16_bits`). NumPy has no bfloat16, so their value
 arrays hold the bit patterns as uint16 (BF16_BITS); the torch side views
 them as torch.bfloat16 (reference.plan_tensor).
 
-Deferred (tilespmv_tpu keeps them): the offs/roll scatter encodings.
+The builders emit rounds planes only. Offs and roll planes come in
+through plan files and plans the reference writes (interop,
+core/serialize.py): `entry_rows` reads the planes of each encoding, and
+the plain versions on the CPU and the stream kernels on the card read
+`erow` alone, so such a plan runs through the same code as a rounds
+plan.
 """
 from __future__ import annotations
 
@@ -58,6 +72,13 @@ SPAN_ROWS = 64     # default x2d128 rows per slab superspan (8 windows)
 SPAN_CHOICES = (64, 128, 256, 512)
 MAX_SPAN_ROWS = SPAN_CHOICES[-1]  # x padding slack past the end
 EROW_PAD = -1      # StreamChunks.erow of a slot that holds no entry
+# y-scatter encodings of the reference's planes (see the module doc)
+SCATTERS = ("rounds", "offs", "roll")
+# int8 plane rows per slab of the offs encoding: [ue(8) | us(8) |
+# g_0..g_7 (64)] = 80 rows, padded to 96 as the reference pads them
+OFFS_SLAB_ROWS = 96
+# ... and of the roll encoding: [ue_d0(8) us_d0(8) ue_d1(8) ... us_d7(8)]
+ROLL_SLAB_ROWS = 128
 # a bf16 plan's compute dtype, and the NumPy dtype of its values' bits
 BF16 = "bfloat16"
 BF16_BITS = np.dtype(np.uint16)
@@ -122,6 +143,20 @@ def stack_step_planes(planes: np.ndarray, s_batch: int,
         nsteps, step_plane_rows(rounds, s_batch), LANES)
 
 
+def scatter_slab_rows(scatter: str) -> int:
+    """Plane rows per slab of the offs or roll encoding."""
+    return OFFS_SLAB_ROWS if scatter == "offs" else ROLL_SLAB_ROWS
+
+
+def step_rows(scatter: str, rounds: int, s_batch: int) -> int:
+    """Plane rows per step of a class of encoding `scatter`."""
+    if scatter == "rounds":
+        return step_plane_rows(rounds, s_batch)
+    if scatter not in SCATTERS:
+        raise ValueError(f"scatter {scatter!r}: one of {SCATTERS}")
+    return scatter_slab_rows(scatter) * s_batch
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamChunks:
     """Entry-level slabs: (nslabs, 8, 128) value/index planes, processed
@@ -130,7 +165,7 @@ class StreamChunks:
     slab."""
     val: Any      # (nslabs, 8, 128) f32, or f64 (f64_plan_value)
     vidx: Any     # (nslabs, 8, 128) int16: row-of-128<<7 | lane
-    planes: Any   # (nsteps, step_plane_rows(R, S), 128) int8
+    planes: Any   # (nsteps, step_rows(scatter, R, S), 128) int8
     sbase: Any    # (nslabs,) int32: x2d128 row base of the superspan
     cw: Any       # (nsteps,) int32: output window id
     cfirst: Any   # (nsteps,) int32: 1 = first step of its window
@@ -146,6 +181,8 @@ class StreamChunks:
     rounds_: int = ROUNDS
     span_rows: int = SPAN_ROWS
     dual: bool = False
+    # y-scatter encoding of `planes`: "rounds", "offs" or "roll"
+    scatter: str = "rounds"
 
     @property
     def nslabs(self) -> int:
@@ -438,29 +475,59 @@ def _runs_planes(slab_of: np.ndarray, sub_of: np.ndarray,
     return planes, rounds
 
 
-def entry_rows(st: StreamChunks) -> np.ndarray:
-    """Each entry slot's output row in its step's 1024-row window, from
-    the stacked round planes: per slab and round t, target (q, j) routes
-    the run of lanes (rstart, rend] of sublane src = rsrc[q, j], and those
-    lanes get row q*128 + j. (nslabs, 8, 128) int16, EROW_PAD where no
-    run lies (lane 0, padding). Rows are non-decreasing along each
-    sublane's entries, since the builders sort them so."""
+def _plane_runs(st: StreamChunks):
+    """Every run the stacked planes of `st` route: (slab, src sublane,
+    start - 1 lane, end lane, output row q*128 + j) arrays."""
     S, R = st.s_batch, st.rounds
     nsteps = st.cw.shape[0]
     nsl = nsteps * S
-    p = np.asarray(st.planes).reshape(nsteps, R, 3, S, SUBS, LANES)
-    runs = []                        # (slab, src, start, end, row) per t
-    for t in range(R):
-        rend, rstart, rsrc = (p[:, t, c].reshape(nsl, SUBS, LANES)
-                              for c in range(3))
-        rsrc = rsrc.astype(np.intp)
-        e = np.take_along_axis(rend, rsrc, axis=1)
-        s = np.take_along_axis(rstart, rsrc, axis=1)
-        hit = e > s
-        sl, q, j = np.nonzero(hit)
-        runs.append((sl, rsrc[hit], s[hit].astype(np.int64),
-                     e[hit].astype(np.int64), q * LANES + j))
-    sl, src, s, e, row = (np.concatenate(a) for a in zip(*runs))
+    planes = np.asarray(st.planes)
+    tgt = np.arange(SUBS)[None, :, None]
+    parts = []       # (rend, rstart, src, row) planes per round or offset
+    if st.scatter == "rounds":
+        p = planes.reshape(nsteps, R, 3, S, SUBS, LANES)
+        for t in range(R):
+            rend, rstart, rsrc = (p[:, t, c].reshape(nsl, SUBS, LANES)
+                                  for c in range(3))
+            src = rsrc.astype(np.intp)
+            parts.append((np.take_along_axis(rend, src, axis=1),
+                          np.take_along_axis(rstart, src, axis=1), src,
+                          np.broadcast_to(tgt, src.shape)))
+    else:
+        p = planes.reshape(nsl, scatter_slab_rows(st.scatter), LANES)
+        src = np.broadcast_to(np.arange(SUBS)[None, :, None],
+                              (nsl, SUBS, LANES))
+        for d in range(SUBS):
+            if st.scatter == "offs":
+                g = p[:, 2 * SUBS + d * SUBS:3 * SUBS + d * SUBS].astype(
+                    np.intp)
+                rend = np.take_along_axis(p[:, :SUBS], g, axis=2)
+                rstart = np.take_along_axis(p[:, SUBS:2 * SUBS], g, axis=2)
+            else:
+                rend = p[:, 2 * SUBS * d:2 * SUBS * d + SUBS]
+                rstart = p[:, 2 * SUBS * d + SUBS:2 * SUBS * (d + 1)]
+            parts.append((rend, rstart, src, (src + d) % SUBS))
+    runs = []
+    lane = np.arange(LANES)
+    for rend, rstart, src, q in parts:
+        hit = rend > rstart
+        sl, a, j = np.nonzero(hit)
+        runs.append((sl, src[hit], rstart[hit].astype(np.int64),
+                     rend[hit].astype(np.int64),
+                     q[hit] * LANES + lane[j]))
+    return [np.concatenate(a) for a in zip(*runs)]
+
+
+def entry_rows(st: StreamChunks) -> np.ndarray:
+    """Each entry slot's output row in its step's 1024-row window, from
+    the stacked planes of any encoding: a run of lanes (start, end] of
+    sublane src routed to target (q, j) gives those lanes row q*128 + j.
+    (nslabs, 8, 128) int16, EROW_PAD where no run lies (lane 0,
+    padding). Rows are non-decreasing along each sublane's entries,
+    since the builders sort them so; the encodings route the same runs,
+    so they give the same rows."""
+    nsl = st.cw.shape[0] * st.s_batch
+    sl, src, s, e, row = _plane_runs(st)
     n = e - s
     first = np.repeat(np.cumsum(n) - n, n)
     lane = np.repeat(s + 1, n) + np.arange(int(n.sum())) - first

@@ -12,6 +12,15 @@ takes either); `op.T` is the transposed operator (`rmatvec`), and
 buffers, so `.to(device)` moves the plan. It is built on the card unless
 the caller asks for another device.
 
+`max_cols_per_plan` splits the columns into parts of (limit // B) * B
+columns, each its own operator (`op.parts`), whose partial y's are
+summed, as the reference's column partitioning does. It is there so
+that the reference's callers run unchanged: on the card the parts only
+add launches, and one plan gives the same y. The default is None: no
+partitioning. The reference partitions above 2**21 columns because its
+engines keep the whole x resident in on-chip memory; the card's kernels
+read x from global memory, so a plan of any width runs as one.
+
 `backend` takes the reference's names (tilespmv_tpu/ops/spmv.py):
 
 * "pallas" — the lane plan (ops/cuda/lane_plan.py) and its class
@@ -32,8 +41,9 @@ way to another device or backend.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -96,6 +106,7 @@ class TileSpMV(nn.Module):
     >>> op8 = TileSpMV(csr, config=TileConfig(tile_size=8))  # xla
     >>> opx = TileSpMV(csr, backend="xla")  # the xla engines at B = 16
     >>> op2 = TileSpMV.from_plan(load_lane_plan(path))
+    >>> opc = TileSpMV(csr, max_cols_per_plan=1 << 20)  # column parts
     """
 
     DTYPES = (torch.float32, torch.float64, torch.bfloat16)
@@ -104,7 +115,8 @@ class TileSpMV(nn.Module):
                  device: Union[str, torch.device, None] = None,
                  dtype: torch.dtype = torch.float32,
                  config: TileConfig = DEFAULT_CONFIG,
-                 backend: str = "auto"):
+                 backend: str = "auto",
+                 max_cols_per_plan: Optional[int] = None):
         """`a`: a CSRMatrix (converted with `config`) or a TileMatrix
         from tile_create with any config (`config` is then not used; its
         own tile size counts). `device`: where the plan lives and the
@@ -117,7 +129,11 @@ class TileSpMV(nn.Module):
         reference; on the xla backend the engines compute in bf16 as the
         reference's do). `backend`: "auto", "xla" or "pallas" (see the
         module doc); "pallas" with a tile size other than 16 raises
-        NotImplementedError, as the reference's lane planner does."""
+        NotImplementedError, as the reference's lane planner does.
+        `max_cols_per_plan`: a matrix wider than this many columns is
+        split into column parts (see the module doc; a TileMatrix that
+        wide raises ValueError, as it cannot be split, and so does a
+        limit below the tile size); None, the default, never splits."""
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}: one of "
@@ -127,6 +143,20 @@ class TileSpMV(nn.Module):
         # TileMatrix cannot be transposed without re-tiling anyway)
         self._source_csr = a if isinstance(a, CSRMatrix) else None
         self._config = config
+        limit = max_cols_per_plan
+        tile = (a.config if isinstance(a, TileMatrix) else config).tile_size
+        if limit is not None and limit < tile:
+            raise ValueError(f"max_cols_per_plan={limit} is below the tile "
+                             f"size {tile}: a part holds whole tile columns")
+        if limit is not None and a.n > limit:
+            if not isinstance(a, CSRMatrix):
+                raise ValueError(
+                    f"matrix is wider (n={a.n}) than max_cols_per_plan="
+                    f"{limit}; pass the CSRMatrix so TileSpMV can "
+                    "column-partition it")
+            self._init_col_partitioned(a, device, dtype, config, backend,
+                                       limit)
+            return
         if not isinstance(a, TileMatrix):
             a = tile_create(a, config)
         if backend == "auto":
@@ -156,6 +186,43 @@ class TileSpMV(nn.Module):
         op._register_plan(plan, device)
         return op
 
+    def _init_col_partitioned(self, csr: CSRMatrix, device, dtype, config,
+                              backend: str, limit: int) -> None:
+        """The parts of the reference's column partitioning
+        (tilespmv_tpu/ops/spmv.py:_init_col_partitioned): columns c0 ..
+        c0 + width - 1, width = (limit // B) * B, as a CSR of shape
+        (m, width) (the last part narrower), each an operator of its
+        own."""
+        width = (limit // config.tile_size) * config.tile_size
+        starts = list(range(0, csr.n, width))
+        rows = np.repeat(np.arange(csr.m), np.diff(csr.indptr))
+        parts = []
+        for c0 in starts:
+            c1 = min(c0 + width, csr.n)
+            sel = (csr.indices >= c0) & (csr.indices < c1)
+            sub = CSRMatrix(
+                (csr.m, c1 - c0),
+                np.concatenate([[0], np.cumsum(np.bincount(
+                    rows[sel], minlength=csr.m))]).astype(np.int64),
+                (csr.indices[sel] - c0).astype(csr.indices.dtype),
+                csr.data[sel])
+            parts.append(TileSpMV(sub, device=device, dtype=dtype,
+                                  config=config, backend=backend))
+        self.parts = nn.ModuleList(parts)
+        self._col_starts = starts
+        self._shape = csr.shape
+        self.backend = parts[0].backend
+        self.nnz = sum(p.nnz for p in parts)
+        self._bytes_accessed = sum(p.bytes_accessed() for p in parts)
+        self.summary = dict(
+            m=csr.m, n=csr.n, nnz=self.nnz, dtype=parts[0].summary["dtype"],
+            plan_mbytes=round(self._bytes_accessed / 1e6, 2),
+            col_parts=len(parts),
+            classes=[dict(c, part=i) for i, p in enumerate(parts)
+                     for c in p.summary.get("classes", ())],
+            residual_nnz=sum(p.summary.get("residual_nnz", 0)
+                             for p in parts))
+
     def _setup(self, device, dtype) -> Union[str, torch.device]:
         """Checks dtype and resolves device; returns the device."""
         if dtype not in self.DTYPES:
@@ -169,6 +236,9 @@ class TileSpMV(nn.Module):
                     "PyTorch versions on the CPU")
             device = "cuda"
         self.dtype = dtype
+        # the column parts of a column-partitioned operator (an
+        # nn.ModuleList, so that .to() moves them), else None
+        self.parts = None
         # the transposed operator, built at first use of .T; set past
         # nn.Module's __setattr__ so that op and op.T, which refer to
         # each other, are not each other's submodules
@@ -195,14 +265,25 @@ class TileSpMV(nn.Module):
 
     @property
     def shape(self) -> tuple[int, int]:
+        if self.parts is not None:
+            return self._shape
         return (self._skeleton.m, self._skeleton.n)
 
     @property
     def device(self) -> torch.device:
+        if self.parts is not None:
+            return self.parts[0].device
         return self.residual_val.device
 
     def device_plan(self) -> Union[LanePlan, SpMVPlan]:
-        """The plan with its arrays as this module's (device) buffers."""
+        """The plan with its arrays as this module's (device) buffers.
+        A column-partitioned operator has one plan per part (`parts`)
+        and raises ValueError, as the reference's --save-plan refuses
+        one."""
+        if self.parts is not None:
+            raise ValueError(
+                f"a column-partitioned operator has {len(self.parts)} "
+                "plans, one per part: take op.parts[i].device_plan()")
         return self._map(self._skeleton, lambda n, _: getattr(self, n))
 
     def flops(self) -> int:
@@ -240,19 +321,33 @@ class TileSpMV(nn.Module):
         """y = A^T @ x (scipy.sparse.linalg.LinearOperator convention)."""
         return self.T(x)
 
+    def _sum_parts(self, x: torch.Tensor, fn) -> torch.Tensor:
+        """The sum over the column parts of fn(part, its rows of x)."""
+        y = None
+        for c0, part in zip(self._col_starts, self.parts):
+            yk = fn(part, x[c0: c0 + part.shape[1]])
+            y = yk if y is None else y + yk
+        return y
+
     def forward(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        if x.shape != (self._skeleton.n,):
+        n = self.shape[1]
+        if x.shape != (n,):
             raise ValueError(f"x has shape {tuple(x.shape)}, "
-                             f"expected ({self._skeleton.n},)")
+                             f"expected ({n},)")
+        if self.parts is not None:
+            return self._sum_parts(x, TileSpMV.forward)
         return spmv(self.device_plan(), x)
 
     def matmat(self, x) -> torch.Tensor:
         """Y = A @ X for X (n, k) (see `spmm`)."""
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        if x.dim() != 2 or x.shape[0] != self._skeleton.n:
+        n = self.shape[1]
+        if x.dim() != 2 or x.shape[0] != n:
             raise ValueError(f"X has shape {tuple(x.shape)}, expected "
-                             f"({self._skeleton.n}, k)")
+                             f"({n}, k)")
+        if self.parts is not None:
+            return self._sum_parts(x, TileSpMV.matmat)
         return spmm(self.device_plan(), x)
 
     def __matmul__(self, x) -> torch.Tensor:

@@ -79,7 +79,8 @@ def _launcher(arm: str, d, xp, y):
                if arm.startswith("all") else d.groups.shape[0])
     p = kernels._p
     args = (p(d.val), p(d.meta), p(d.cmask), p(d.groups), nblocks, p(d.pb),
-            p(d.cw), p(xp), p(y), d.t_lanes, d.k_panels, d.c_batch)
+            p(d.cw), p(xp), p(y), d.t_lanes, d.meta.shape[1], d.k_panels,
+            d.c_batch)
 
     def run():
         err = entry(*args, kernels._stream())

@@ -105,7 +105,8 @@ def _launcher(arm: str, classes, xp, y):
                            ("tsp_sparse",))[arm].tsp_sparse
     p = kernels._p
     args = [(p(s.val), p(s.meta), p(s.pb), p(s.cw), p(xp), p(y),
-             s.val.shape[0], s.width, s.t_lanes, s.k_panels, s.c_batch)
+             s.val.shape[0], s.width, s.t_lanes, s.meta.shape[1],
+             s.k_panels, s.c_batch)
             for s in classes]
 
     def run():

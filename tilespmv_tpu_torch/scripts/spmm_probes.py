@@ -208,8 +208,8 @@ def _sparse_launcher(arm: str, classes, xp, y):
                            ("tsp_sparse_spmm",))[arm].tsp_sparse_spmm
     p = kernels._p
     args = [(p(s.val), p(s.meta), p(s.pb), p(s.cw), p(xp), p(y),
-             s.val.shape[0], s.width, s.t_lanes, s.k_panels, s.c_batch,
-             xp.shape[1]) for s in classes]
+             s.val.shape[0], s.width, s.t_lanes, s.meta.shape[1],
+             s.k_panels, s.c_batch, xp.shape[1]) for s in classes]
     return _runner("sparse_spmm", arm, entry, args)
 
 
@@ -235,8 +235,8 @@ def _dense_launcher(arm: str, classes, xp, y):
     args = [(p(d.val), p(d.meta), p(d.cmask), p(d.groups),
              (d.val.shape[0] * d.t_lanes // DENSE_GROUP
               if arm == "all_groups" else d.groups.shape[0]),
-             p(d.pb), p(d.cw), p(xp), p(y), d.t_lanes, d.k_panels,
-             d.c_batch, xp.shape[1]) for d in classes]
+             p(d.pb), p(d.cw), p(xp), p(y), d.t_lanes, d.meta.shape[1],
+             d.k_panels, d.c_batch, xp.shape[1]) for d in classes]
     return _runner("dense_spmm", arm, entry, args)
 
 

@@ -280,6 +280,20 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def op_classes(op) -> list:
+    """The classes of the lane plan of `op`, or of each of its column
+    parts (`op.parts`), and each plan's residual where it holds entries:
+    the work class_bound counts."""
+    out = []
+    for part in (op.parts if op.parts is not None else [op]):
+        plan = part.device_plan()
+        out += [c for c in (plan.dense, plan.band, *plan.sparses,
+                            plan.stream, plan.stream2) if c is not None]
+        if plan.residual.val.shape[0]:
+            out.append(plan.residual)
+    return out
+
+
 def profile_engines(op, x=None) -> dict[str, dict]:
     """Per-class timing breakdown of a TileSpMV operator (f32, f64 or
     bf16).
@@ -296,10 +310,18 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     the plain version (host clock). The residual is timed with
     reference.residual_add, the main path's `index_add_`. `x` defaults to
     bench.py's (i % 10) / 4. An operator on the xla backend, which has
-    no such classes, raises ValueError (as the reference's does).
+    no such classes, raises ValueError (as the reference's does). A
+    column-partitioned operator gives each part's classes under
+    "part{i}_<class>", each part on its columns of x.
     """
     if op.backend != "pallas":
         raise ValueError("profile_engines requires the pallas backend")
+    if op.parts is not None:
+        x = (np.arange(op.shape[1]) % 10) / 4.0 if x is None else x
+        return {f"part{i}_{k}": v
+                for i, (c0, part) in enumerate(zip(op._col_starts, op.parts))
+                for k, v in profile_engines(
+                    part, x[c0: c0 + part.shape[1]]).items()}
     plan = op.device_plan()
     if x is None:
         x = (np.arange(plan.n) % 10) / 4.0
