@@ -1,0 +1,7 @@
+"""spmv_ms: the window's host-clock time, ending in a synchronize, over
+the SpMV iterations it completed (cells with k = 1)."""
+from benchmark import readers
+
+
+def read(rec):
+    return readers.per_call_ms(rec, matmat=False)
