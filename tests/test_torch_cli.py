@@ -30,6 +30,7 @@ def test_mtx_on_the_cpu(tmp_path, capsys):
     assert "CPU TileSpMV errcount = 0" in out
     assert "Check... PASS!" in out
     assert "plan summary: " in out and "per-format-class cost" in out
+    assert "plan phases (s): plan.convert=" in out
     assert "TileSpMV: " in out and "of cpu HBM roofline" in out
     assert "eager " in out and "spread " in out
     rows = csvp.read_text().splitlines() if csvp.exists() else []

@@ -716,8 +716,48 @@ def test_profile_engines_on_cuda(dtype, device):
     after = kernels.launch_counts()
     assert list(prof) == want
     assert all(v["us"] > 0 and v["bytes"] > 0 for v in prof.values())
+    assert all(v["device_us"] > 0 for v in prof.values())
     suffix = "_f64" if dtype == torch.float64 else ""
     assert after["stream" + suffix] > before["stream" + suffix]
+    for key, v in prof.items():
+        st = getattr(plan, key, None) if key.startswith("stream") else None
+        swap = 0 if st is None else (st.erow.numel() * st.erow.element_size()
+                                     - st.planes.numel())
+        assert v["kernel_bytes"] == v["bytes"] + swap, key
+
+
+def test_spans_hold_the_launches(device):
+    """Under torch.profiler each class kernel's launch begins inside its
+    `tsp.launch.<class>` span, every span inside the call's
+    `tsp.forward`, on the trace's one clock."""
+    op = TileSpMV(generate.get_matrix("mixed_medium"), device=device)
+    x = torch.from_numpy(_bench_x(op.shape[1])).to(device)
+    op(x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        op(x)
+        torch.cuda.synchronize()
+    spans, launches = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type().name != "CPU":
+            continue
+        t0, t1 = e.start_ns(), e.start_ns() + e.duration_ns()
+        if e.name().startswith("tsp."):
+            spans.setdefault(e.name(), []).append((t0, t1))
+        elif e.name().startswith("cudaLaunchKernel"):
+            launches.append(t0)
+    plan = op.device_plan()
+    names = (["tsp.launch.dense"] * (plan.dense is not None)
+             + [f"tsp.launch.sparse_w{s.width}" for s in plan.sparses]
+             + ["tsp.launch.stream"] * (plan.stream is not None))
+    (fwd,) = spans["tsp.forward"]
+    assert len(spans["tsp.prep"]) == 2 and "tsp.finish" in spans
+    for name in names:
+        (a, b) = spans[name][0]
+        assert fwd[0] <= a <= b <= fwd[1], name
+        assert any(a <= t <= b for t in launches), name
 
 
 def test_trace_context_traces_the_kernels(tmp_path, device):

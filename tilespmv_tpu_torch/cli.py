@@ -43,6 +43,7 @@ from .io import generate, mmio
 from .ops.cpu_reference import spmv_cpu
 from .ops.spmv import TileSpMV
 from .parallel.mesh import initialize_multihost, run_devices
+from .spans import plan_phases
 from .utils.profiling import profile_engines
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64,
@@ -115,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "synthetic corpus")
     p.add_argument("--profile", action="store_true",
                    help="per-format-class cost breakdown "
-                        "(reference DEBUG_FORMATCOST parity)")
+                        "(reference DEBUG_FORMATCOST parity) and the "
+                        "plan's phase times")
     p.add_argument("--save-tiles", default=None, metavar="PATH.npz",
                    help="checkpoint the converted TileMatrix")
     p.add_argument("--load-tiles", default=None, metavar="PATH.npz",
@@ -426,6 +428,8 @@ def main(argv=None) -> int:
             print(f"  {cls_name}: " + "  ".join(
                 f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in stats.items()))
+        print("plan phases (s): " + "  ".join(
+            f"{k}={v:.4f}" for k, v in plan_phases().items()))
 
     res = benchmark_op(op, x=x, name=args.matrix, warmup=args.warmup,
                        timed_reps=args.reps, iters_per_rep=args.iters)

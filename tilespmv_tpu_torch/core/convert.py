@@ -27,6 +27,7 @@ import numpy as np
 from ..config import (FMT_COO, FMT_CSR, FMT_DNS, FMT_DNSCOL, FMT_DNSROW,
                       FMT_ELL, FMT_HYB, DEFAULT_CONFIG, TileConfig)
 from ..io.mmio import CSRMatrix
+from ..spans import phase
 from .tile_matrix import (COOBucket, CSRBucket, DNSBucket, DNSColBucket,
                           DNSRowBucket, ELLBucket, HYBBucket, TileMatrix)
 
@@ -204,7 +205,14 @@ def tile_create(csr: CSRMatrix,
                 use_native: bool = True) -> TileMatrix:
     """Convert canonical CSR to a TileMatrix (reference `Tile_create`,
     csr2tile.h:629-1020). Uses the native C++ analysis when available
-    (`use_native=False` or TILESPMV_NATIVE=0 forces the NumPy path)."""
+    (`use_native=False` or TILESPMV_NATIVE=0 forces the NumPy path).
+    Timed as the set-up phase `plan.convert` (spans.py)."""
+    with phase("plan.convert"):
+        return _tile_create(csr, config, use_native)
+
+
+def _tile_create(csr: CSRMatrix, config: TileConfig,
+                 use_native: bool) -> TileMatrix:
     cfg = config
     b = cfg.tile_size
     m, n = csr.shape

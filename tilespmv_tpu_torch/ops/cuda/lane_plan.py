@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from ...core.tile_matrix import TileMatrix
+from ...spans import phase
 from ..plan import ResidualEngine
 from .stream_plan import (BF16, BF16_BITS, MAX_SPAN_ROWS, RW_ROWS,
                           SPAN_ROWS, StreamChunks, bf16_values,
@@ -1047,7 +1048,9 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32,
             g_r = ctr0[owner0] * b + bk.row
             g_c = (tm.tile_columnidx[bk.tile_ids[owner0]]
                    .astype(np.int64) * b + bk.col)
-            stream_ns, a_span, a_dual = _coo_stream_cost_ns(g_r, g_c, tm.m)
+            with phase("plan.stream"):
+                stream_ns, a_span, a_dual = _coo_stream_cost_ns(g_r, g_c,
+                                                                tm.m)
             ctc0 = tm.tile_columnidx[bk.tile_ids].astype(np.int64)
             absorb_ns = _coo_absorb_cost_ns(ctr0, ctc0, ccounts0, tm.tilem)
             global LAST_ABSORB_ESTIMATE
@@ -1205,22 +1208,25 @@ def build_lane_plan(tm: TileMatrix, compute_dtype=np.float32,
             s_rows.append(coo_g[0])
             s_cols.append(coo_g[1])
             s_vals.append(bk.val.astype(np.float64))
-        g_row = np.concatenate(s_rows)
-        g_col = np.concatenate(s_cols)
-        g_val = np.concatenate(s_vals)
-        if not g_val.size:
-            stream = empty_stream_chunks(max(1, -(-tm.m // RW_ROWS)), cdt,
-                                         s_batch=stream_s_batch or 4)
-        elif stream_s_batch is None:
-            stream, stream2 = build_stream_classes(
-                g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
-                dual=stream_dual, compute_dtype=cdt)
-        else:
-            # a shared s_batch (the distributed layer's shard plans must
-            # agree): one class, no split
-            stream = build_stream_chunks(
-                g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
-                dual=stream_dual, compute_dtype=cdt, s_batch=stream_s_batch)
+        with phase("plan.stream"):
+            g_row = np.concatenate(s_rows)
+            g_col = np.concatenate(s_cols)
+            g_val = np.concatenate(s_vals)
+            if not g_val.size:
+                stream = empty_stream_chunks(
+                    max(1, -(-tm.m // RW_ROWS)), cdt,
+                    s_batch=stream_s_batch or 4)
+            elif stream_s_batch is None:
+                stream, stream2 = build_stream_classes(
+                    g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
+                    dual=stream_dual, compute_dtype=cdt)
+            else:
+                # a shared s_batch (the distributed layer's shard plans
+                # must agree): one class, no split
+                stream = build_stream_chunks(
+                    g_row, g_col, g_val, tm.m, span_rows=stream_span_rows,
+                    dual=stream_dual, compute_dtype=cdt,
+                    s_batch=stream_s_batch)
 
     # leftover residual: the HYB overflow entries
     hb = tm.hyb

@@ -42,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...spans import span
 from ..plan import ResidualEngine
 from .lane_plan import (DENSE_GROUP, PANEL_TC, ROW_WINDOW, BandChunks,
                         DenseChunks, LanePlan, SparseChunks, acc_dtype,
@@ -450,11 +451,14 @@ def zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
 
 def _panel_classes(plan: LanePlan, xp, y, band, dense, sparse) -> None:
     if plan.dense is not None:
-        dense(plan.dense, xp, y)
+        with span("tsp.launch.dense"):
+            dense(plan.dense, xp, y)
     if plan.band is not None:
-        band(plan.band, xp, y)
+        with span("tsp.launch.band"):
+            band(plan.band, xp, y)
     for s in plan.sparses:
-        sparse(s, xp, y)
+        with span(f"tsp.launch.sparse_w{s.width}"):
+            sparse(s, xp, y)
 
 
 def residual_add(plan: LanePlan, x, y) -> None:
@@ -470,16 +474,21 @@ def residual_add(plan: LanePlan, x, y) -> None:
                      * x[r.col.long()].to(y.dtype))
 
 
-def _assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-              stream) -> torch.Tensor:
-    xp = pad_x(plan, x)
-    y = zero_y(plan, x)
+def _assemble(plan: LanePlan, x: torch.Tensor, ndim: int, band, dense,
+              sparse, stream) -> torch.Tensor:
+    with span("tsp.prep"):
+        x = _checked_x(plan, x, ndim)
+        xp = pad_x(plan, x)
+        y = zero_y(plan, x)
     _panel_classes(plan, xp, y, band, dense, sparse)
-    for st in (plan.stream, plan.stream2):
+    for name, st in (("tsp.launch.stream", plan.stream),
+                     ("tsp.launch.stream2", plan.stream2)):
         if st is not None:
-            stream(st, xp, y)
-    residual_add(plan, x, y)
-    return y[: plan.m].to(plan.dtype)
+            with span(name):
+                stream(st, xp, y)
+    with span("tsp.finish"):
+        residual_add(plan, x, y)
+        return y[: plan.m].to(plan.dtype)
 
 
 def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
@@ -487,9 +496,11 @@ def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
     """y = A @ x with the given class functions, in the reference's
     class order (dense, band, W-classes, stream, stream2, residual): x
     cast to the plan's value dtype, the classes summed in its compute
-    dtype and y cast to the value dtype once, at the end."""
-    return _assemble(plan, _checked_x(plan, x, 1), band, dense, sparse,
-                     stream)
+    dtype and y cast to the value dtype once, at the end. Spans (see
+    spans.py): `tsp.prep` (x checked and cast, padded; y zeroed),
+    `tsp.launch.<class>` around each class function and `tsp.finish`
+    (the residual and y's cast)."""
+    return _assemble(plan, x, 1, band, dense, sparse, stream)
 
 
 def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
@@ -497,9 +508,8 @@ def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
     """Y = A @ X for X (n, k) with the given class functions, in
     spmm_pallas's class order (tilespmv_tpu/ops/pallas/kernels.py:
     1069-1140), each class over all k columns in one call (spmm_pallas
-    takes the stream classes an RHS pair a call)."""
-    return _assemble(plan, _checked_x(plan, x, 2), band, dense, sparse,
-                     stream)
+    takes the stream classes an RHS pair a call); assemble's spans."""
+    return _assemble(plan, x, 2, band, dense, sparse, stream)
 
 
 def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,7 @@ from ..config import DEFAULT_CONFIG, TileConfig
 from ..core.convert import tile_create
 from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
+from ..spans import phase, span
 from .cuda.kernels import SPMM_K, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
 from .cuda.reference import plan_tensor, spmm_reference, spmv_reference
@@ -162,8 +163,9 @@ class TileSpMV(nn.Module):
         if backend == "auto":
             backend = "pallas" if a.config.tile_size == 16 else "xla"
         build = build_lane_plan if backend == "pallas" else build_plan
-        self._register_plan(build(
-            a, compute_dtype=str(dtype).removeprefix("torch.")), device)
+        with phase("plan.classes"):
+            plan = build(a, compute_dtype=str(dtype).removeprefix("torch."))
+        self._register_plan(plan, device)
 
     @classmethod
     def from_plan(cls, plan: Union[LanePlan, SpMVPlan],
@@ -248,20 +250,22 @@ class TileSpMV(nn.Module):
     def _register_plan(self, plan: Union[LanePlan, SpMVPlan],
                        device) -> None:
         """Sets the backend from the plan's type, registers each plan
-        array as a buffer and moves them to `device`."""
-        self.backend = "xla" if isinstance(plan, SpMVPlan) else "pallas"
-        self._map = (map_plan_arrays if isinstance(plan, SpMVPlan)
-                     else map_arrays)
-        self.summary = plan.summary()
-        self.nnz = plan.nnz
-        self._bytes_accessed = plan.bytes_accessed()
+        array as a buffer and moves them to `device` (phase
+        `plan.upload`)."""
+        with phase("plan.upload"):
+            self.backend = "xla" if isinstance(plan, SpMVPlan) else "pallas"
+            self._map = (map_plan_arrays if isinstance(plan, SpMVPlan)
+                         else map_arrays)
+            self.summary = plan.summary()
+            self.nnz = plan.nnz
+            self._bytes_accessed = plan.bytes_accessed()
 
-        def register(name, arr):
-            self.register_buffer(name, plan_tensor(arr))
-        self._map(plan, register)
-        # the plan with each array replaced by its buffer's name
-        self._skeleton = self._map(plan, lambda n, _: n)
-        self.to(device)
+            def register(name, arr):
+                self.register_buffer(name, plan_tensor(arr))
+            self._map(plan, register)
+            # the plan with each array replaced by its buffer's name
+            self._skeleton = self._map(plan, lambda n, _: n)
+            self.to(device)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -329,26 +333,37 @@ class TileSpMV(nn.Module):
             y = yk if y is None else y + yk
         return y
 
+    def _prep(self, x, ndim: int):
+        """(x cast to the operator's dtype and device, checked; the device
+        plan, None for a column-partitioned operator), in span
+        `tsp.prep` (the plan in `tsp.device_plan`)."""
+        with span("tsp.prep"):
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            n = self.shape[1]
+            if x.dim() != ndim or x.shape[0] != n:
+                want = f"({n},)" if ndim == 1 else f"({n}, k)"
+                raise ValueError(f"{'x' if ndim == 1 else 'X'} has shape "
+                                 f"{tuple(x.shape)}, expected {want}")
+            if self.parts is not None:
+                return x, None
+            with span("tsp.device_plan"):
+                return x, self.device_plan()
+
     def forward(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        n = self.shape[1]
-        if x.shape != (n,):
-            raise ValueError(f"x has shape {tuple(x.shape)}, "
-                             f"expected ({n},)")
-        if self.parts is not None:
-            return self._sum_parts(x, TileSpMV.forward)
-        return spmv(self.device_plan(), x)
+        """y = A @ x, in span `tsp.forward` (spans.py)."""
+        with span("tsp.forward"):
+            x, plan = self._prep(x, 1)
+            if plan is None:
+                return self._sum_parts(x, TileSpMV.forward)
+            return spmv(plan, x)
 
     def matmat(self, x) -> torch.Tensor:
-        """Y = A @ X for X (n, k) (see `spmm`)."""
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        n = self.shape[1]
-        if x.dim() != 2 or x.shape[0] != n:
-            raise ValueError(f"X has shape {tuple(x.shape)}, expected "
-                             f"({n}, k)")
-        if self.parts is not None:
-            return self._sum_parts(x, TileSpMV.matmat)
-        return spmm(self.device_plan(), x)
+        """Y = A @ X for X (n, k) (see `spmm`), in span `tsp.matmat`."""
+        with span("tsp.matmat"):
+            x, plan = self._prep(x, 2)
+            if plan is None:
+                return self._sum_parts(x, TileSpMV.matmat)
+            return spmm(plan, x)
 
     def __matmul__(self, x) -> torch.Tensor:
         """op @ x: SpMV for 1-D x, SpMM for 2-D x."""

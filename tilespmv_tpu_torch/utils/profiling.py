@@ -306,8 +306,13 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     class's value and index arrays (the reference's count); `gbps` is
     bytes / time. Each class runs through its wrapper in
     ops/cuda/kernels.py into its own zeroed y: on a CUDA operator that
-    launches the kernel (CUDA-event timing), on a CPU operator it runs
-    the plain version (host clock). The residual is timed with
+    launches the kernel (CUDA-event timing, which times the host where
+    a class takes less time than its wrapper), on a CPU operator it
+    runs the plain version (host clock). A CUDA operator's classes also
+    give `device_us`, the device time of one call by CUDA-graph replay
+    (`graph_ms`), and `kernel_bytes`, the arrays its kernel reads:
+    `bytes`, except that the stream kernels read `erow` and not the
+    round planes. The residual is timed with
     reference.residual_add, the main path's `index_add_`. `x` defaults to
     bench.py's (i % 10) / 4. An operator on the xla backend, which has
     no such classes, raises ValueError (as the reference's does). A
@@ -328,9 +333,14 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     xt = torch.as_tensor(x, dtype=plan.dtype, device=op.device)
     xp = reference.pad_x(plan, xt)
 
-    def timed(fn, cls, b: int, **counts) -> dict:
-        dt = _timed(fn, cls, xp, reference.zero_y(plan, xt))
-        return {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9, **counts}
+    def timed(fn, cls, b: int, kernel_bytes=None, xs=xp, **counts) -> dict:
+        y = reference.zero_y(plan, xt)
+        dt = _timed(fn, cls, xs, y)
+        out = {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9, **counts}
+        if xt.is_cuda:
+            out["device_us"] = graph_ms(lambda: fn(cls, xs, y)) * 1e3
+            out["kernel_bytes"] = b if kernel_bytes is None else kernel_bytes
+        return out
 
     out = {}
     if plan.dense is not None:
@@ -349,14 +359,14 @@ def profile_engines(op, x=None) -> dict[str, dict]:
         if st is not None:
             out[key] = timed(kernels.stream_spmv, st,
                              _nbytes(st.val, st.vidx, st.planes),
+                             _nbytes(st.val, st.vidx, st.erow),
                              slabs=int(st.nslabs), rounds=st.rounds,
                              s_batch=st.s_batch)
     r = plan.residual
     if r.val.shape[0]:
-        dt = _timed(lambda xu, y: reference.residual_add(plan, xu, y), xt,
-                    reference.zero_y(plan, xt))
-        b = _nbytes(r.val, r.row, r.col)
-        out["residual"] = {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9}
+        out["residual"] = timed(
+            lambda _, xu, y: reference.residual_add(plan, xu, y), None,
+            _nbytes(r.val, r.row, r.col), xs=xt)
     return out
 
 
