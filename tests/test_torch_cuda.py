@@ -1584,3 +1584,58 @@ def test_column_partitioned_operator_on_the_card(device):
         np.testing.assert_allclose(got[:, r],
                                    csr.matvec(xs[:, r].astype(np.float64)),
                                    rtol=2e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["spmv", "matmat"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16])
+def test_call_state_on_the_card(dtype, kind, device):
+    """The operator's calls, through its call state, against the
+    functional spmv / spmm on its device plan (which check every class
+    and pad x each call): y within 1e-5 * max(1, max|y|) (f64 1e-12,
+    bf16 2^-7: atomics order the sums), the same LAUNCHES a call, the
+    first call and a later one; then op(x) captured in a CUDA graph
+    after a warm-up call on a side stream replays to the eager y, and to
+    op(x2) once x holds x2, and the capture keeps no padded x."""
+    from tilespmv_tpu_torch.ops.spmv import spmm, spmv
+    op = TileSpMV(generate.get_matrix("mixed_medium"), device=device,
+                  dtype=dtype)
+    plan = op.device_plan()
+    rng = np.random.default_rng(5)
+    shape = (op.shape[1],) if kind == "spmv" else (op.shape[1], 8)
+    x, x2 = (torch.from_numpy(rng.uniform(-1, 1, shape)).to(device, dtype)
+             for _ in range(2))
+    call = op if kind == "spmv" else op.matmat
+    functional = spmv if kind == "spmv" else spmm
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12, BF16: 2 ** -7}[dtype]
+
+    def close(got, want):
+        err = float((got.double() - want.double()).abs().max())
+        return err <= tol * max(1.0, float(want.double().abs().max()))
+
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        want = functional(plan, x)
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        got = call(x)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == counts
+        assert sum(counts.values()) >= 2
+        assert close(got, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(x)
+    torch.cuda.current_stream().wait_stream(side)
+    pads = set(op._state.pads)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = call(x)
+    assert set(op._state.pads) == pads
+    graph.replay()
+    torch.cuda.synchronize()
+    assert close(yg, call(x))
+    x.copy_(x2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert close(yg, functional(plan, x2))

@@ -3,9 +3,10 @@
 Without a profiler `span` hands out one shared no-op context and never
 enters a profiler span. Under `torch.profiler` one call of a CPU
 operator gives `tsp.forward` (`tsp.matmat`) holding `tsp.prep` (holding
-`tsp.device_plan`), the assembly's `tsp.prep`, one
-`tsp.launch.<class>` per class of the plan in the main path's order,
-and `tsp.finish`; a column part's spans sit inside the outer call's.
+`tsp.device_plan` at the operator's first call alone, where its call
+state is built), the assembly's `tsp.prep`, one `tsp.launch.<class>`
+per class of the plan in the main path's order, and `tsp.finish`; a
+column part's spans sit inside the outer call's.
 `TileSpMV(csr)` fills the four plan phases, which sum to the
 constructor's wall time within 10%; `trace_context`'s Chrome trace holds
 the spans.
@@ -101,10 +102,14 @@ def span_tree(prof) -> list:
     return [tree(e) for e in roots]
 
 
-def call_tree(outer, classes_):
-    """The spans of one call over a plan with `classes_`."""
-    return (outer, [("tsp.prep", [("tsp.device_plan", [])]),
-                    *assembly(classes_)])
+def call_tree(outer, classes_, first=True):
+    """The spans of one call over a plan with `classes_`: the first
+    builds the call state, in `tsp.device_plan`."""
+    return (outer, [prep(first), *assembly(classes_)])
+
+
+def prep(first):
+    return ("tsp.prep", [("tsp.device_plan", [])] if first else [])
 
 
 def assembly(classes_):
@@ -158,9 +163,12 @@ def test_forward_spans_nest(name, dtype):
     if name == "hyb":
         assert op.device_plan().residual.val.shape[0] > 0
     x = torch.linspace(-1, 1, csr.n).to(DTYPES[dtype])
-    y, tree = profiled(lambda: op(x))
-    assert tree == [call_tree("tsp.forward", FORWARD_CASES[name, dtype])]
+    (y, y2), tree = profiled(lambda: (op(x), op(x)))
+    assert tree == [call_tree("tsp.forward", FORWARD_CASES[name, dtype],
+                              first)
+                    for first in (True, False)]
     assert_product(csr, x, y, dtype)
+    assert torch.equal(y, y2)
 
 
 @pytest.mark.parametrize("dtype,k", [("f32", 8), ("f64", 3)])
@@ -170,12 +178,13 @@ def test_matmat_spans_nest(dtype, k):
     csr, op = operator("mixed", dtype)
     x = torch.rand(csr.n, k, generator=torch.Generator().manual_seed(1),
                    dtype=DTYPES[dtype])
-    y, tree = profiled(lambda: op.matmat(x))
+    (y, y2), tree = profiled(lambda: (op.matmat(x), op.matmat(x)))
     per = 1 if dtype == "f32" else k
-    body = [("tsp.prep", [("tsp.device_plan", [])])]
-    body += assembly(["dense", "stream"]) * per
-    assert tree == [("tsp.matmat", body)]
+    assert tree == [("tsp.matmat",
+                     [prep(first), *assembly(["dense", "stream"]) * per])
+                    for first in (True, False)]
     assert_product(csr, x, y)
+    assert torch.equal(y, y2)
 
 
 def test_column_parts_nest_in_the_outer_call():
@@ -183,9 +192,12 @@ def test_column_parts_nest_in_the_outer_call():
     op = TileSpMV(csr, device="cpu", max_cols_per_plan=256)
     assert len(op.parts) == 4
     x = torch.linspace(-1, 1, csr.n)
-    y, tree = profiled(lambda: op(x))
-    parts = [call_tree("tsp.forward", classes(p)) for p in op.parts]
-    assert tree == [("tsp.forward", [("tsp.prep", []), *parts])]
+    (y, _), tree = profiled(lambda: (op(x), op(x)))
+    assert tree == [("tsp.forward",
+                     [("tsp.prep", []),
+                      *[call_tree("tsp.forward", classes(p), first)
+                        for p in op.parts]])
+                    for first in (True, False)]
     assert_product(csr, x, y)
 
 
@@ -193,9 +205,9 @@ def test_xla_backend_has_no_class_spans():
     csr = generate.mixed_structure(512, 512, seed=7)
     op = TileSpMV(csr, device="cpu", backend="xla")
     x = torch.linspace(-1, 1, csr.n)
-    y, tree = profiled(lambda: op(x))
-    assert tree == [("tsp.forward",
-                     [("tsp.prep", [("tsp.device_plan", [])])])]
+    (y, _), tree = profiled(lambda: (op(x), op(x)))
+    assert tree == [("tsp.forward", [prep(first)])
+                    for first in (True, False)]
     assert_product(csr, x, y)
 
 

@@ -18,7 +18,9 @@ class's plain PyTorch version; given CUDA tensors it launches the kernel
 on the current stream (building the library on first use) or raises.
 `LAUNCHES` counts kernel launches per kernel (`band` the f32 band
 kernel, `band_f64` the f64 one, `band_bf16` the bf16 one, ...); it moves
-only where a kernel is launched.
+only where a kernel is launched. Each wrapper makes a `ClassLaunch` (the
+class's checks, entry point and plan arguments) and runs it; an operator
+keeps one per class and calls it, which checks x and y alone.
 
 `microbench_gather` and `microbench_scatter` wrap the two
 microbenchmark kernels (the reference's scripts/microbench_*.py), whose
@@ -96,14 +98,13 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _use_kernel(y: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch), False for CPU ones (plain
+def _use_kernel(dev: torch.device) -> bool:
+    """True for CUDA tensors' device (launch), False for the CPU (plain
     version); anything else raises."""
-    if y.device.type == "cpu":
+    if dev.type == "cpu":
         return False
-    if y.device.type != "cuda":
-        raise ValueError(f"kernels run on CUDA or CPU tensors, not "
-                         f"{y.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernels run on CUDA or CPU tensors, not {dev}")
     return True
 
 
@@ -287,56 +288,129 @@ def band_launch(bd, k: int = 1) -> dict:
                 bytes=nbytes)
 
 
+def _band_args(bd, dev, dt) -> tuple:
+    nch, C = _check_band(bd, dev, dt)
+    return (bd.val, bd.bloc, bd.pb, bd.cw), (nch, C, bd.k_panels)
+
+
+def _dense_args(d, dev, dt) -> tuple:
+    nch = _check_dense(d, dev, dt)
+    ng = _check_dense_derived(d, nch, dev)
+    return ((d.val, d.meta, d.cmask, d.groups, ng, d.pb, d.cw),
+            (d.t_lanes, d.meta.shape[1], d.k_panels, d.c_batch))
+
+
+def _sparse_args(s, dev, dt) -> tuple:
+    nch = _check_sparse(s, dev, dt)
+    return ((s.val, s.meta, s.pb, s.cw),
+            (nch, s.width, s.t_lanes, s.meta.shape[1], s.k_panels,
+             s.c_batch))
+
+
+def _stream_args(st, dev, dt, group: int) -> tuple:
+    nsteps = _check_stream(st, dev, dt)
+    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
+    return ((st.val, st.vidx, st.erow, st.sbase, sb2, st.xmap, st.cw,
+             st.sactive),
+            (nsteps, st.s_batch, st.span_rows, min(max(1, group),
+                                                   st.s_batch)))
+
+
+# kind: (its checks and launch arguments, (SpMV kernel, its plain
+# version), (SpMM kernel, its plain version))
+_KINDS = {
+    "band": (_band_args, ("band", band_reference),
+             ("band_spmm", band_spmm_reference)),
+    "dense": (_dense_args, ("dense", dense_reference),
+              ("dense_spmm", dense_spmm_reference)),
+    "sparse": (_sparse_args, ("sparse", sparse_rows_reference),
+               ("sparse_spmm", sparse_spmm_reference)),
+    "stream": (_stream_args, ("stream", stream_rows_reference),
+               ("stream2", stream_rows_reference)),
+}
+
+
+class ClassLaunch:
+    """One class kernel over one class, its plan side done once: the
+    class's value dtype and plan arrays checked on `dev` (the wrappers'
+    `_check_*`), its entry point resolved from `build.load()` and its
+    plan arguments made. `kind` is "band", "dense", "sparse" or
+    "stream"; `mm` picks the SpMM kernel (f32 and bf16 values; the
+    stream classes' is stream2.cu); `group` is stream_spmv's. Calling it
+    with a padded x and a y checks those alone and launches, as the
+    wrapper does; on the CPU it runs the class's plain version. The plan
+    arrays must stay where they are: a launch passes the addresses it
+    took when it was made."""
+
+    __slots__ = ("cls", "name", "dtype", "mm", "device", "fn", "head",
+                 "tail", "nk", "plain")
+
+    def __init__(self, kind: str, cls, dev: torch.device, mm: bool = False,
+                 group: int = STREAM_GROUP):
+        args, mv, mmk = _KINDS[kind]
+        kernel, self.plain = mmk if mm else mv
+        self.dtype = _value_dtype(cls.val, _F32_BF16 if mm or kind == "sparse"
+                                  else tuple(_SUFFIX))
+        extra = (group,) if kind == "stream" else ()
+        head, self.tail = args(cls, dev, self.dtype, *extra)
+        # the LAUNCHES key; the C entry is tsp_<name>
+        self.name = kernel + _SUFFIX[self.dtype]
+        self.cls, self.mm, self.device = cls, mm, dev
+        # k follows the tail once, twice for stream2 (k and X's stride)
+        self.nk = (2 if kind == "stream" else 1) if mm else 0
+        self.fn = self.head = None
+        if _use_kernel(dev):
+            self.fn = getattr(build.load(), "tsp_" + self.name)
+            self.head = tuple(_p(a) if isinstance(a, torch.Tensor) else a
+                              for a in head)
+
+    def __call__(self, x: torch.Tensor, y: torch.Tensor,
+                 stream=None) -> torch.Tensor:
+        """Checks x and y (dtype, contiguity, device; for SpMM k and
+        16-byte alignment), then run()."""
+        if self.mm:
+            _check_xy_mm(self.name, x, y)
+        else:
+            _check_xy(x, y, self.dtype)
+        if y.device != self.device:
+            raise ValueError(f"{self.name}: x and y on {y.device}, the "
+                             f"class on {self.device}")
+        return self.run(x, y, stream)
+
+    def run(self, x: torch.Tensor, y: torch.Tensor,
+            stream=None) -> torch.Tensor:
+        """The launch on `stream` (a cudaStream_t handle; None: the
+        current stream), x and y unchecked; the plain version on the
+        CPU."""
+        if self.fn is None:
+            return self.plain(self.cls, x, y)
+        err = self.fn(*self.head, x.data_ptr(), y.data_ptr(), *self.tail,
+                      *x.shape[1:] * self.nk,
+                      _stream() if stream is None else stream)
+        _launched(self.name, err)
+        return y
+
+
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums
     (f32, f64 or bf16 values)."""
-    dt = _value_dtype(bd.val)
-    _check_xy(x, y, dt)
-    nch, C = _check_band(bd, y.device, dt)
-    if not _use_kernel(y):
-        return band_reference(bd, x, y)
-    name = "band" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
-        nch, C, bd.k_panels, _stream())
-    _launched(name, err)
-    return y
+    _check_xy(x, y, _value_dtype(bd.val))
+    return ClassLaunch("band", bd, y.device).run(x, y)
 
 
 def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32, f64
     or bf16 values); the kernel runs the lane groups in `groups` and, in
     each tile, the columns in its `cmask`."""
-    dt = _value_dtype(d.val)
-    _check_xy(x, y, dt)
-    nch = _check_dense(d, y.device, dt)
-    ng = _check_dense_derived(d, nch, y.device)
-    if not _use_kernel(y):
-        return dense_reference(d, x, y)
-    name = "dense" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
-        _p(d.cw), _p(x), _p(y), d.t_lanes, d.meta.shape[1], d.k_panels,
-        d.c_batch, _stream())
-    _launched(name, err)
-    return y
+    _check_xy(x, y, _value_dtype(d.val))
+    return ClassLaunch("dense", d, y.device).run(x, y)
 
 
 def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """W-class: packed sparse-entry tiles, routed by meta[LROW] (f32 or
     bf16 values); each row sums its own slots (sparse_rows_reference)."""
-    dt = _value_dtype(s.val, _F32_BF16)
-    _check_xy(x, y, dt)
-    nch = _check_sparse(s, y.device, dt)
-    if not _use_kernel(y):
-        return sparse_rows_reference(s, x, y)
-    name = "sparse" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
-        nch, s.width, s.t_lanes, s.meta.shape[1], s.k_panels, s.c_batch,
-        _stream())
-    _launched(name, err)
-    return y
+    _check_xy(x, y, _value_dtype(s.val, _F32_BF16))
+    return ClassLaunch("sparse", s, y.device).run(x, y)
 
 
 def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
@@ -344,73 +418,34 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
     """Stream class: entry slabs, each entry added into its own output
     row `erow` (f32, f64 or bf16 values); a block takes `group` slabs of
     a step."""
-    dt = _value_dtype(st.val)
-    _check_xy(x, y, dt)
-    nsteps = _check_stream(st, y.device, dt)
-    if not _use_kernel(y):
-        return stream_rows_reference(st, x, y)
-    name = "stream" + _SUFFIX[dt]
-    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(st.val), _p(st.vidx), _p(st.erow), _p(st.sbase), _p(sb2),
-        _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
-        st.s_batch, st.span_rows, min(max(1, group), st.s_batch),
-        _stream())
-    _launched(name, err)
-    return y
+    _check_xy(x, y, _value_dtype(st.val))
+    return ClassLaunch("stream", st, y.device, group=group).run(x, y)
 
 
 def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k), every product taken (band_reference)."""
-    dt = _value_dtype(bd.val, _F32_BF16)
-    k = _check_xy_mm("band_spmm", x, y)
-    nch, C = _check_band(bd, y.device, dt)
-    if not _use_kernel(y):
-        return band_spmm_reference(bd, x, y)
-    name = "band_spmm" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(bd.val), _p(bd.bloc), _p(bd.pb), _p(bd.cw), _p(x), _p(y),
-        nch, C, bd.k_panels, k, _stream())
-    _launched(name, err)
-    return y
+    _value_dtype(bd.val, _F32_BF16)
+    _check_xy_mm("band_spmm", x, y)
+    return ClassLaunch("band", bd, y.device, mm=True).run(x, y)
 
 
 def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dense class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k); the kernel runs the lane groups in `groups` and, in
     each tile, the columns in its `cmask` (dense_active_reference)."""
-    dt = _value_dtype(d.val, _F32_BF16)
-    k = _check_xy_mm("dense_spmm", x, y)
-    nch = _check_dense(d, y.device, dt)
-    ng = _check_dense_derived(d, nch, y.device)
-    if not _use_kernel(y):
-        return dense_spmm_reference(d, x, y)
-    name = "dense_spmm" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(d.val), _p(d.meta), _p(d.cmask), _p(d.groups), ng, _p(d.pb),
-        _p(d.cw), _p(x), _p(y), d.t_lanes, d.meta.shape[1], d.k_panels,
-        d.c_batch, k, _stream())
-    _launched(name, err)
-    return y
+    _value_dtype(d.val, _F32_BF16)
+    _check_xy_mm("dense_spmm", x, y)
+    return ClassLaunch("dense", d, y.device, mm=True).run(x, y)
 
 
 def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """W-class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k); each row sums its own slots
     (sparse_spmm_reference)."""
-    dt = _value_dtype(s.val, _F32_BF16)
-    k = _check_xy_mm("sparse_spmm", x, y)
-    nch = _check_sparse(s, y.device, dt)
-    if not _use_kernel(y):
-        return sparse_spmm_reference(s, x, y)
-    name = "sparse_spmm" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(s.val), _p(s.meta), _p(s.pb), _p(s.cw), _p(x), _p(y),
-        nch, s.width, s.t_lanes, s.meta.shape[1], s.k_panels, s.c_batch, k,
-        _stream())
-    _launched(name, err)
-    return y
+    _value_dtype(s.val, _F32_BF16)
+    _check_xy_mm("sparse_spmm", x, y)
+    return ClassLaunch("sparse", s, y.device, mm=True).run(x, y)
 
 
 def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -418,20 +453,9 @@ def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     into y (ylen, k) in one launch: each entry added into its own output
     row `erow` of every column (stream_rows_reference); a block takes
     STREAM_GROUP slabs of a step."""
-    dt = _value_dtype(st.val, _F32_BF16)
-    k = _check_xy_mm("stream_spmm", x, y)
-    nsteps = _check_stream(st, y.device, dt)
-    if not _use_kernel(y):
-        return stream_rows_reference(st, x, y)
-    sb2 = st.sbase2 if st.sbase2 is not None else st.sbase
-    name = "stream2" + _SUFFIX[dt]
-    err = getattr(build.load(), "tsp_" + name)(
-        _p(st.val), _p(st.vidx), _p(st.erow), _p(st.sbase), _p(sb2),
-        _p(st.xmap), _p(st.cw), _p(st.sactive), _p(x), _p(y), nsteps,
-        st.s_batch, st.span_rows, min(STREAM_GROUP, st.s_batch), k, k,
-        _stream())
-    _launched(name, err)
-    return y
+    _value_dtype(st.val, _F32_BF16)
+    _check_xy_mm("stream_spmm", x, y)
+    return ClassLaunch("stream", st, y.device, mm=True).run(x, y)
 
 
 def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
@@ -475,7 +499,7 @@ def microbench_gather(src: torch.Tensor, idx: torch.Tensor, r: int,
     if r not in MB_GATHER_R:
         raise ValueError(f"microbench_gather: R = {r}, not in {MB_GATHER_R}")
     out = _mb_out(dev, nsteps)
-    if not _use_kernel(out):
+    if not _use_kernel(out.device):
         return microbench_gather_reference(src, idx, r)
     units = min(microbench_grid("microbench_gather", r)[0], nsteps)
     err = build.load().tsp_mb_gather(_p(src), _p(idx), _p(out), r, nsteps,
@@ -499,7 +523,7 @@ def microbench_scatter(arm: str, csum: torch.Tensor, pe: torch.Tensor,
         raise ValueError(f"microbench_scatter: arm {arm!r}, not one of "
                          f"{MB_SCATTER_ARMS}")
     out = _mb_out(dev, nsteps)
-    if not _use_kernel(out):
+    if not _use_kernel(out.device):
         return microbench_scatter_reference(arm, csum, pe)
     units = min(microbench_grid("microbench_scatter", arm)[0], nsteps)
     err = build.load().tsp_mb_scatter(_p(csum), _p(pe), _p(out),

@@ -449,16 +449,19 @@ def zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
                        device=x.device)
 
 
-def _panel_classes(plan: LanePlan, xp, y, band, dense, sparse) -> None:
-    if plan.dense is not None:
-        with span("tsp.launch.dense"):
-            dense(plan.dense, xp, y)
-    if plan.band is not None:
-        with span("tsp.launch.band"):
-            band(plan.band, xp, y)
-    for s in plan.sparses:
-        with span(f"tsp.launch.sparse_w{s.width}"):
-            sparse(s, xp, y)
+def class_order(plan: LanePlan) -> list:
+    """(span, kind, class) of each class of the plan in the reference's
+    class order: dense, band, the W-classes, stream, stream2; `kind` is
+    "dense", "band", "sparse" or "stream", the span
+    `tsp.launch.<class>`."""
+    out = [(f"tsp.launch.{kind}", kind, c) for kind, c in
+           (("dense", plan.dense), ("band", plan.band)) if c is not None]
+    out += [(f"tsp.launch.sparse_w{s.width}", "sparse", s)
+            for s in plan.sparses]
+    out += [(f"tsp.launch.{name}", "stream", st) for name, st in
+            (("stream", plan.stream), ("stream2", plan.stream2))
+            if st is not None]
+    return out
 
 
 def residual_add(plan: LanePlan, x, y) -> None:
@@ -474,32 +477,36 @@ def residual_add(plan: LanePlan, x, y) -> None:
                      * x[r.col.long()].to(y.dtype))
 
 
-def _assemble(plan: LanePlan, x: torch.Tensor, ndim: int, band, dense,
-              sparse, stream) -> torch.Tensor:
-    with span("tsp.prep"):
-        x = _checked_x(plan, x, ndim)
-        xp = pad_x(plan, x)
-        y = zero_y(plan, x)
-    _panel_classes(plan, xp, y, band, dense, sparse)
-    for name, st in (("tsp.launch.stream", plan.stream),
-                     ("tsp.launch.stream2", plan.stream2)):
-        if st is not None:
-            with span(name):
-                stream(st, xp, y)
+def finish(plan: LanePlan, x: torch.Tensor,
+           y: torch.Tensor) -> torch.Tensor:
+    """The residual added into y (residual_add) and y's first m rows in
+    the plan's value dtype, in span `tsp.finish`."""
     with span("tsp.finish"):
         residual_add(plan, x, y)
         return y[: plan.m].to(plan.dtype)
 
 
+def _assemble(plan: LanePlan, x: torch.Tensor, ndim: int, band, dense,
+              sparse, stream) -> torch.Tensor:
+    fns = dict(band=band, dense=dense, sparse=sparse, stream=stream)
+    with span("tsp.prep"):
+        x = _checked_x(plan, x, ndim)
+        xp = pad_x(plan, x)
+        y = zero_y(plan, x)
+    for name, kind, cls in class_order(plan):
+        with span(name):
+            fns[kind](cls, xp, y)
+    return finish(plan, x, y)
+
+
 def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
              stream) -> torch.Tensor:
     """y = A @ x with the given class functions, in the reference's
-    class order (dense, band, W-classes, stream, stream2, residual): x
-    cast to the plan's value dtype, the classes summed in its compute
-    dtype and y cast to the value dtype once, at the end. Spans (see
-    spans.py): `tsp.prep` (x checked and cast, padded; y zeroed),
-    `tsp.launch.<class>` around each class function and `tsp.finish`
-    (the residual and y's cast)."""
+    class order (class_order, then the residual): x cast to the plan's
+    value dtype, the classes summed in its compute dtype and y cast to
+    the value dtype once, at the end. Spans (see spans.py): `tsp.prep`
+    (x checked and cast, padded; y zeroed), `tsp.launch.<class>` around
+    each class function and `tsp.finish` (the residual and y's cast)."""
     return _assemble(plan, x, 1, band, dense, sparse, stream)
 
 

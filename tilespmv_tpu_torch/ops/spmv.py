@@ -32,6 +32,9 @@ read x from global memory, so a plan of any width runs as one.
 * "auto"   — "pallas" exactly when the tile size is 16, as the
   reference picks.
 
+An operator builds its call state at its first call (`_CallState`: the
+device plan, each class's checked launch, a padded x kept per stream)
+and every later call reuses it; moving its buffers (`.to()`) drops it.
 The functional `spmv(plan, x)` / `spmm(plan, X)` run a device plan and
 dispatch on its type: an SpMVPlan through the xla engines, a LanePlan on
 a CUDA device through the class kernels (ops/cuda/kernels.py::spmv_cuda
@@ -51,10 +54,11 @@ from ..config import DEFAULT_CONFIG, TileConfig
 from ..core.convert import tile_create
 from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
-from ..spans import phase, span
-from .cuda.kernels import SPMM_K, spmm_cuda, spmv_cuda
+from ..spans import phase, span, state_built
+from .cuda.kernels import SPMM_K, ClassLaunch, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
-from .cuda.reference import plan_tensor, spmm_reference, spmv_reference
+from .cuda.reference import (class_order, finish, pad_x, plan_tensor,
+                             spmm_reference, spmv_reference, zero_y)
 from .plan import SpMVPlan, build_plan, map_plan_arrays
 from .xla_spmv import spmm_xla, spmv_xla
 
@@ -91,6 +95,74 @@ def spmm(plan: Union[LanePlan, SpMVPlan], x: torch.Tensor) -> torch.Tensor:
         return torch.stack([spmv(plan, x[:, r])
                             for r in range(x.shape[1])], dim=1)
     return _run(plan, x, spmm_cuda, spmm_reference)
+
+
+class _CallState:
+    """The work of an operator's call that no x changes, done once: the
+    device plan; for a LanePlan each class's launch, checked and made
+    (kernels.ClassLaunch; the SpMM ones too on an f32 or bf16 plan); and
+    one zero-padded x per trailing shape of x and stream, whose padding
+    no kernel writes, so that a call copies x into its first n rows
+    alone. `spmv` and `spmm` run as the functional `spmv` / `spmm` do on
+    the same plan: the same kernels in the same order, with the same
+    spans. A call while a CUDA graph is captured pads x afresh."""
+
+    def __init__(self, plan: Union[LanePlan, SpMVPlan],
+                 device: torch.device):
+        self.plan, self.device, self.n = plan, device, plan.n
+        self.pads = {}
+        self.mv = self.mm = None
+        if isinstance(plan, SpMVPlan):
+            return
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"TileSpMV runs on CUDA or CPU, not {device}")
+        order = class_order(plan)
+        self.mv = [(name, ClassLaunch(kind, c, device))
+                   for name, kind, c in order]
+        if plan.dtype != torch.float64:
+            self.mm = [(name, ClassLaunch(kind, c, device, mm=True))
+                       for name, kind, c in order]
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mv is None:
+            return spmv_xla(self.plan, x)
+        return self._assemble(x, self.mv)
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mv is None:
+            return spmm_xla(self.plan, x)
+        if self.mm is None or x.shape[1] not in SPMM_K:
+            return torch.stack([self.spmv(x[:, r])
+                                for r in range(x.shape[1])], dim=1)
+        return self._assemble(x, self.mm)
+
+    def _assemble(self, x: torch.Tensor, launches: list) -> torch.Tensor:
+        """reference.assemble's steps and spans on x, checked and cast."""
+        with span("tsp.prep"):
+            stream = None
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream().cuda_stream
+            xp = self._pad(x, stream)
+            y = zero_y(self.plan, x)
+        for name, launch in launches:
+            with span(name):
+                launch(xp, y, stream)
+        return finish(self.plan, x, y)
+
+    def _pad(self, x: torch.Tensor, stream) -> torch.Tensor:
+        """x in the first n rows of the kept padded x of its trailing
+        shape on `stream` (made by pad_x at its first use)."""
+        if stream is not None and torch.cuda.is_current_stream_capturing():
+            return pad_x(self.plan, x)
+        key = (tuple(x.shape[1:]), stream)
+        kept = self.pads.get(key)
+        if kept is None:
+            xp = pad_x(self.plan, x)
+            self.pads[key] = xp, xp[: self.n]
+            return xp
+        xp, head = kept
+        head.copy_(x)
+        return xp
 
 
 class TileSpMV(nn.Module):
@@ -245,6 +317,8 @@ class TileSpMV(nn.Module):
         # nn.Module's __setattr__ so that op and op.T, which refer to
         # each other, are not each other's submodules
         object.__setattr__(self, "_transpose", None)
+        # the call state (_CallState), built at the first call
+        self._state = None
         return device
 
     def _register_plan(self, plan: Union[LanePlan, SpMVPlan],
@@ -266,6 +340,25 @@ class TileSpMV(nn.Module):
             # the plan with each array replaced by its buffer's name
             self._skeleton = self._map(plan, lambda n, _: n)
             self.to(device)
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to(), .cuda(), .cpu(), .half(), ... replace the buffers that
+        # the call state points at: the next call builds it anew
+        self._state = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def __setattr__(self, name, value):
+        if name in self.__dict__.get("_buffers", ()):
+            # a buffer replaced (load_state_dict(assign=True), ...)
+            self._state = None
+        super().__setattr__(name, value)
+
+    def __getstate__(self):
+        # copies and pickles leave the state behind: it holds the
+        # addresses of this operator's buffers
+        state = super().__getstate__()
+        state["_state"] = None
+        return state
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -334,36 +427,44 @@ class TileSpMV(nn.Module):
         return y
 
     def _prep(self, x, ndim: int):
-        """(x cast to the operator's dtype and device, checked; the device
-        plan, None for a column-partitioned operator), in span
-        `tsp.prep` (the plan in `tsp.device_plan`)."""
+        """(x cast to the operator's dtype and device, checked; the call
+        state, None for a column-partitioned operator), in span
+        `tsp.prep` (the state built, at the first call, in
+        `tsp.device_plan`)."""
         with span("tsp.prep"):
-            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-            n = self.shape[1]
+            st = None
+            if self.parts is not None:
+                device, n = self.device, self.shape[1]
+            else:
+                st = self._state
+                if st is None:
+                    with span("tsp.device_plan"):
+                        st = _CallState(self.device_plan(), self.device)
+                    self._state = st
+                    state_built()
+                device, n = st.device, st.n
+            x = torch.as_tensor(x, dtype=self.dtype, device=device)
             if x.dim() != ndim or x.shape[0] != n:
                 want = f"({n},)" if ndim == 1 else f"({n}, k)"
                 raise ValueError(f"{'x' if ndim == 1 else 'X'} has shape "
                                  f"{tuple(x.shape)}, expected {want}")
-            if self.parts is not None:
-                return x, None
-            with span("tsp.device_plan"):
-                return x, self.device_plan()
+            return x, st
 
     def forward(self, x) -> torch.Tensor:
         """y = A @ x, in span `tsp.forward` (spans.py)."""
         with span("tsp.forward"):
-            x, plan = self._prep(x, 1)
-            if plan is None:
+            x, st = self._prep(x, 1)
+            if st is None:
                 return self._sum_parts(x, TileSpMV.forward)
-            return spmv(plan, x)
+            return st.spmv(x)
 
     def matmat(self, x) -> torch.Tensor:
         """Y = A @ X for X (n, k) (see `spmm`), in span `tsp.matmat`."""
         with span("tsp.matmat"):
-            x, plan = self._prep(x, 2)
-            if plan is None:
+            x, st = self._prep(x, 2)
+            if st is None:
                 return self._sum_parts(x, TileSpMV.matmat)
-            return spmm(plan, x)
+            return st.spmm(x)
 
     def __matmul__(self, x) -> torch.Tensor:
         """op @ x: SpMV for 1-D x, SpMM for 2-D x."""

@@ -87,3 +87,22 @@ def plan_phases() -> dict:
 def reset_plan_phases() -> None:
     _PLAN.clear()
     _PLAN.update(dict.fromkeys(PLAN_PHASES, 0.0))
+
+
+_STATE_BUILDS = 0
+
+
+def state_built() -> None:
+    """Counts one call state built."""
+    global _STATE_BUILDS
+    _STATE_BUILDS += 1
+
+
+def state_builds() -> int:
+    """Call states built since the process started or the last reset."""
+    return _STATE_BUILDS
+
+
+def reset_state_builds() -> None:
+    global _STATE_BUILDS
+    _STATE_BUILDS = 0
