@@ -324,34 +324,73 @@ class LanePlan:
         return total
 
     def summary(self) -> dict:
-        """Static per-class plan statistics."""
+        """Static per-class plan statistics. Each class also gives its
+        shape in the matrix's terms: `nnz`, its values that are not zero
+        (counted once here; an explicit zero of the matrix counts as
+        padding), `slots`, its value slots, padding included, and
+        `bytes`, what its kernel streams a call (`kernel_bytes`); the
+        residual gives `residual_nnz` and `residual_bytes`."""
         s: dict = dict(m=self.m, n=self.n, nnz=self.nnz,
                        dtype=str(self.dtype).replace("torch.", ""),
                        plan_mbytes=round(self.bytes_accessed() / 1e6, 2),
                        classes=[])
+
+        def shape(cls) -> dict:
+            return dict(nnz=_count_nonzero(cls.val),
+                        slots=int(np.prod(cls.val.shape)),
+                        bytes=kernel_bytes(cls))
         if self.dense is not None:
             d = self.dense
             s["classes"].append(dict(
                 kind="dense", chunks=int(d.val.shape[0]),
                 t_lanes=d.t_lanes, k_panels=d.k_panels,
-                c_batch=d.c_batch))
+                c_batch=d.c_batch, **shape(d)))
         if self.band is not None:
             s["classes"].append(dict(
                 kind="band", c_cols=int(self.band.c_cols),
-                chunks=int(self.band.val.shape[0])))
+                chunks=int(self.band.val.shape[0]), **shape(self.band)))
         for w in self.sparses:
             s["classes"].append(dict(
                 kind=f"w{w.width}", chunks=int(w.val.shape[0]),
-                k_panels=w.k_panels))
+                k_panels=w.k_panels, **shape(w)))
         for tag, st in (("stream", self.stream),
                         ("stream2", self.stream2)):
             if st is not None:
                 s["classes"].append(dict(
                     kind=tag, slabs=int(st.nslabs), s_batch=st.s_batch,
                     rounds=st.rounds, span_rows=st.span_rows,
-                    dual=bool(st.dual)))
+                    dual=bool(st.dual), **shape(st)))
         s["residual_nnz"] = int(self.residual.val.shape[0])
+        s["residual_bytes"] = kernel_bytes(self.residual)
         return s
+
+
+def _nbytes(*arrays) -> int:
+    """Bytes of NumPy arrays or tensors."""
+    return sum(int(np.prod(a.shape)) * a.dtype.itemsize for a in arrays)
+
+
+def _count_nonzero(a) -> int:
+    """Entries of a NumPy array or a tensor that are not zero."""
+    if isinstance(a, torch.Tensor):
+        return int(torch.count_nonzero(a))
+    return int(np.count_nonzero(a))
+
+
+def kernel_bytes(cls) -> int:
+    """Bytes of the arrays that a class's kernel streams in one SpMV: its
+    values and their per-entry or per-lane indices (`meta`; the band's
+    `bloc`; a stream class's `vidx` and `erow`, which the CUDA kernels
+    read in place of the round planes; the residual's `row` and `col`).
+    `bytes_accessed` is the reference's count, with the round planes."""
+    if isinstance(cls, ResidualEngine):
+        return _nbytes(cls.val, cls.row, cls.col)
+    if isinstance(cls, BandChunks):
+        return _nbytes(cls.val, cls.bloc)
+    if isinstance(cls, StreamChunks):
+        rows = cls.planes if cls.erow is None else cls.erow
+        return _nbytes(cls.val, cls.vidx, rows)
+    return _nbytes(cls.val, cls.meta)
 
 
 def map_arrays(plan: LanePlan, fn) -> LanePlan:

@@ -54,7 +54,7 @@ from ..config import DEFAULT_CONFIG, TileConfig
 from ..core.convert import tile_create
 from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
-from ..spans import phase, span, state_built
+from ..spans import phase, record_plan, span, state_built
 from .cuda.kernels import SPMM_K, ClassLaunch, spmm_cuda, spmv_cuda
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
 from .cuda.reference import (class_order, finish, pad_x, plan_tensor,
@@ -295,7 +295,10 @@ class TileSpMV(nn.Module):
             classes=[dict(c, part=i) for i, p in enumerate(parts)
                      for c in p.summary.get("classes", ())],
             residual_nnz=sum(p.summary.get("residual_nnz", 0)
-                             for p in parts))
+                             for p in parts),
+            residual_bytes=sum(p.summary.get("residual_bytes", 0)
+                               for p in parts))
+        record_plan(self.summary)
 
     def _setup(self, device, dtype) -> Union[str, torch.device]:
         """Checks dtype and resolves device; returns the device."""
@@ -323,14 +326,17 @@ class TileSpMV(nn.Module):
 
     def _register_plan(self, plan: Union[LanePlan, SpMVPlan],
                        device) -> None:
-        """Sets the backend from the plan's type, registers each plan
-        array as a buffer and moves them to `device` (phase
-        `plan.upload`)."""
+        """Sets the backend from the plan's type, records the plan's
+        summary (phase `plan.census`; `spans.plan_census()` reads it),
+        registers each plan array as a buffer and moves them to `device`
+        (phase `plan.upload`)."""
+        with phase("plan.census"):
+            self.summary = plan.summary()
+        record_plan(self.summary)
         with phase("plan.upload"):
             self.backend = "xla" if isinstance(plan, SpMVPlan) else "pallas"
             self._map = (map_plan_arrays if isinstance(plan, SpMVPlan)
                          else map_arrays)
-            self.summary = plan.summary()
             self.nnz = plan.nnz
             self._bytes_accessed = plan.bytes_accessed()
 

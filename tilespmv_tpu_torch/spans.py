@@ -13,13 +13,17 @@ else a `record_function`: under the profiler a `record_function` took
 between them, outside any span and in the card's idle time.
 
 `phase(name)` times a piece of the operator's set-up (`plan.convert`,
-`plan.classes`, `plan.stream`, `plan.upload`) on the host clock,
-always, into a table that `plan_phases()` reads and
+`plan.classes`, `plan.stream`, `plan.census`, `plan.upload`) on the
+host clock, always, into a table that `plan_phases()` reads and
 `reset_plan_phases()` clears, and marks it as a span as well. A phase
 entered inside another counts its seconds once, as its own: the outer
 phase keeps only the time outside it. So the phases sum to the time
 spent inside any of them, and they add up across operators (column
 parts, `.T`) until the table is cleared.
+
+`plan_census()` is the shape of the plan of the operator built last,
+by class kind: its chunks, nonzeros, value slots and the bytes its
+kernels stream, from the plan's summary (`record_plan`).
 
 Imports nothing of the package, which every layer of it imports.
 """
@@ -33,8 +37,10 @@ from torch.autograd import profiler as _autograd_profiler
 
 # the operator's set-up, in the order it runs: tile_create, the plan's
 # classes (the lane plan's routing and packing, or the xla plan), the
-# stream classes' geometry and packing, the buffers' upload
-PLAN_PHASES = ("plan.convert", "plan.classes", "plan.stream", "plan.upload")
+# stream classes' geometry and packing, the plan's summary (its classes'
+# nonzeros counted), the buffers' upload
+PLAN_PHASES = ("plan.convert", "plan.classes", "plan.stream", "plan.census",
+               "plan.upload")
 _PLAN = dict.fromkeys(PLAN_PHASES, 0.0)
 # one entry per open phase: the seconds of the phases nested in it
 _OPEN: list = []
@@ -106,3 +112,41 @@ def state_builds() -> int:
 def reset_state_builds() -> None:
     global _STATE_BUILDS
     _STATE_BUILDS = 0
+
+
+# the plan summary of the operator built last (record_plan), or None
+_PLAN_SUMMARY = None
+
+
+def record_plan(summary: dict) -> None:
+    """Keeps `summary` (a plan's `summary()`, or a column-partitioned
+    operator's, whose classes are its parts') as the summary of the
+    operator built last."""
+    global _PLAN_SUMMARY
+    _PLAN_SUMMARY = summary
+
+
+def plan_census():
+    """The plan of the operator built last, by class kind, or None before
+    the first and for an xla plan (whose engines hold no such counts):
+    for each kind (`dense`, `band`, `w{W}`, `stream`, `stream2`,
+    `residual`), "chunks" (chunks of a dense, band or W-class, slabs of
+    a stream class, entries of the residual), "nnz" (values that are not
+    zero), "slots" (value slots, padding included) and "bytes" (what
+    its kernels stream a call), summed over the classes of that kind,
+    over a column-partitioned operator's parts too. Read from the
+    summary the plan gave when it was built; nothing is counted here."""
+    s = _PLAN_SUMMARY
+    if s is None or "classes" not in s:
+        return None
+    out = {}
+    for c in s["classes"]:
+        o = out.setdefault(c["kind"], dict(chunks=0, nnz=0, slots=0,
+                                           bytes=0))
+        o["chunks"] += c.get("chunks", c.get("slabs", 0))
+        for key in ("nnz", "slots", "bytes"):
+            o[key] += c[key]
+    r = s["residual_nnz"]
+    out["residual"] = dict(chunks=r, nnz=r, slots=r,
+                           bytes=s["residual_bytes"])
+    return out

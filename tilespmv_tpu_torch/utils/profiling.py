@@ -26,7 +26,8 @@ import torch
 
 from ..bench import roofline
 from ..ops.cuda import kernels, reference
-from ..ops.cuda.lane_plan import BandChunks, acc_dtype, value_dtype
+from ..ops.cuda.lane_plan import (BandChunks, acc_dtype, kernel_bytes,
+                                  value_dtype)
 
 
 def _timed(fn, *args, reps: int = 3, k1: int = 25, k2: int = 425) -> float:
@@ -310,9 +311,9 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     a class takes less time than its wrapper), on a CPU operator it
     runs the plain version (host clock). A CUDA operator's classes also
     give `device_us`, the device time of one call by CUDA-graph replay
-    (`graph_ms`), and `kernel_bytes`, the arrays its kernel reads:
-    `bytes`, except that the stream kernels read `erow` and not the
-    round planes. The residual is timed with
+    (`graph_ms`), and `kernel_bytes`, the arrays its kernel reads
+    (lane_plan.kernel_bytes): `bytes`, except that the stream kernels
+    read `erow` and not the round planes. The residual is timed with
     reference.residual_add, the main path's `index_add_`. `x` defaults to
     bench.py's (i % 10) / 4. An operator on the xla backend, which has
     no such classes, raises ValueError (as the reference's does). A
@@ -333,13 +334,14 @@ def profile_engines(op, x=None) -> dict[str, dict]:
     xt = torch.as_tensor(x, dtype=plan.dtype, device=op.device)
     xp = reference.pad_x(plan, xt)
 
-    def timed(fn, cls, b: int, kernel_bytes=None, xs=xp, **counts) -> dict:
+    def timed(fn, cls, b: int, xs=xp, **counts) -> dict:
         y = reference.zero_y(plan, xt)
         dt = _timed(fn, cls, xs, y)
         out = {"us": dt * 1e6, "bytes": b, "gbps": b / dt / 1e9, **counts}
         if xt.is_cuda:
             out["device_us"] = graph_ms(lambda: fn(cls, xs, y)) * 1e3
-            out["kernel_bytes"] = b if kernel_bytes is None else kernel_bytes
+            out["kernel_bytes"] = kernel_bytes(
+                plan.residual if cls is None else cls)
         return out
 
     out = {}
@@ -359,7 +361,6 @@ def profile_engines(op, x=None) -> dict[str, dict]:
         if st is not None:
             out[key] = timed(kernels.stream_spmv, st,
                              _nbytes(st.val, st.vidx, st.planes),
-                             _nbytes(st.val, st.vidx, st.erow),
                              slabs=int(st.nslabs), rounds=st.rounds,
                              s_batch=st.s_batch)
     r = plan.residual
