@@ -244,6 +244,17 @@ Phases, each fatal on failure:
    phase 3's gates, with its graph ms, eager ms (CUDA events over a loop
    of calls), plan MB and build seconds. The phase's seconds are
    printed.
+16. W-classes at scale — HPCG's 27-point stencil at 200^3 (the grid of
+   the benchmark's cell hpcg104-f32.loop1, generate.stencil_27) planned
+   through `TileSpMV(csr, device="cuda", dtype=torch.float32)`: every
+   W-class must hold enough chunks that each block of sparse.cu's
+   persistent grid wraps its ring of stages at least RING_ROUNDS times;
+   with the launch counters reset just before, `kernels.sparse_spmv` on
+   each W-class in f32 and on its bf16 copy (the values rounded to
+   bf16), each against `reference.sparse_rows_reference` on the same
+   inputs (a seeded uniform(-1, 1) x) within KERNEL_TOL * max(1,
+   max|plain|); then sparse and sparse_bf16 must have launched once a
+   class and no other kernel. The phase's seconds are printed.
 
 Prints the card's name and power limit (nvidia-smi), then one JSON line
 of per-kernel results (launches on the main path and per call, error,
@@ -259,7 +270,8 @@ ms, eager ms, the single-device operator's, error, traffic_ratio,
 exchanged bytes; the sweep's points), a "multiprocess" list (phase 14
 (a), per operator and world), a "routing" entry (phase 14 (b)) and an
 "arms" entry (phase 15: per arm, matrix and dtype, plan MB and the op(x)
-and matmat graph ms beside the default plan's; the column parts' rows),
+and matmat graph ms beside the default plan's; the column parts' rows)
+and a "ring" list (phase 16: per class and dtype, chunks, error, bound),
 then the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without a CUDA device or the repo.
@@ -384,6 +396,15 @@ ARM_KERNELS = {"offs": ("stream", "stream2"), "roll": ("stream", "stream2"),
 # phase 15 (c): the wide matrix and its column-partition limits
 COL_PARTS_MATRIX = (262144, 4194304, 8)
 COL_PARTS_LIMITS = (None, 1 << 21, 1 << 20)
+# phase 16: HPCG's 27-point stencil at the grid of the benchmark's cell
+# hpcg104-f32.loop1 (200^3: w24, w32 and w64 classes of 3,908, 46,728 and
+# 11,684 chunks), its seed; every W-class must hold RING_ROUNDS times the
+# chunks of a ring of sparse.cu's most stages (4) in its most blocks an SM
+# (2) on every SM, so that each block wraps its ring that often at least
+RING_GRID = 200
+RING_SEED = 4
+RING_ROUNDS = 3
+RING_UNITS_SM = 4 * 2
 
 
 def log(msg: str) -> None:
@@ -2288,6 +2309,70 @@ def arms_phase(dev, card) -> tuple:
     return out, by_kernel
 
 
+def ring_phase(dev, card) -> list:
+    """Phase 16: the W-class kernel at the benchmark's scale, each class
+    of the stencil's f32 plan and its bf16 copy (the f32 values rounded
+    to bf16, as lane_plan.as_bf16 makes a bf16 plan) against its plain
+    version, with the launch counters reset just before."""
+    import torch
+    from tilespmv_tpu_torch import TileSpMV
+    from tilespmv_tpu_torch.io import generate
+    from tilespmv_tpu_torch.ops.cuda import kernels, reference
+
+    t_phase = time.perf_counter()
+    g = RING_GRID
+    csr = generate.stencil_27(g, g, g, seed=RING_SEED, dtype=np.float32)
+    plan = TileSpMV(csr, device=dev, dtype=torch.float32).device_plan()
+    n = csr.n
+    del csr
+    log(f"plan hpcg{g}: {time.perf_counter() - t_phase:.1f} s, W-classes "
+        f"{[(s.width, s.val.shape[0]) for s in plan.sparses]}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if not plan.sparses:
+        raise AssertionError(f"phase 16: hpcg{g} planned no W-class")
+    for s in plan.sparses:
+        if s.val.shape[0] < RING_ROUNDS * RING_UNITS_SM * sms:
+            raise AssertionError(
+                f"phase 16: w{s.width} has {s.val.shape[0]} chunks, fewer "
+                f"than {RING_ROUNDS} rings on each of {sms} SMs")
+    x = torch.from_numpy(np.random.default_rng(RING_SEED).uniform(
+        -1, 1, n).astype(np.float32)).to(dev)
+    xp = reference.pad_x(plan, x)
+    ylen = reference.zero_y(plan, xp).shape[0]
+    out = []
+    kernels.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        for s in plan.sparses:
+            c = s if dt == torch.float32 else dataclasses.replace(
+                s, val=s.val.to(dt))
+            yk = kernels.sparse_spmv(c, xp, torch.zeros(ylen, device=dev))
+            yp = reference.sparse_rows_reference(
+                c, xp, torch.zeros(ylen, device=dev))
+            err = float((yk - yp).abs().max())
+            bound = KERNEL_TOL * max(1.0, float(yp.abs().max()))
+            nch = c.val.shape[0]
+            label = f"w{c.width} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+            log(f"ring hpcg{g} {label}: {nch} chunks, at least "
+                f"{nch / (RING_UNITS_SM * sms):.1f} rings a block; max |y - "
+                f"plain| {err:.3e} (bound {bound:.3e}) [{card}]")
+            if not err <= bound:
+                raise AssertionError(f"phase 16: ring hpcg{g} {label}: max "
+                                     f"|y - plain| {err} > {bound}")
+            out.append({"class": label, "chunks": nch, "err": err,
+                        "bound": bound})
+            del c, yk, yp
+    launches = kernels.launch_counts()
+    want = {k: len(plan.sparses) if k in ("sparse", "sparse_bf16") else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"phase 16: launches {launches}, expected "
+                             f"{want}")
+    log(f"phase 16 (W-classes at hpcg{g}): launches sparse "
+        f"{launches['sparse']}, sparse_bf16 {launches['sparse_bf16']}, "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--phase14-worker"]:
@@ -2447,8 +2532,12 @@ def main() -> int:
     log(f"phase 15 (planner arms and column parts): "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
 
+    # 16. the W-class kernel at the benchmark's scale
+    ring = ring_phase(dev, card)
+
     log(json.dumps({"kernels": results, "xla": xla, "distributed": dist,
-                    "multiprocess": mp, "routing": routing, "arms": arms}))
+                    "multiprocess": mp, "routing": routing, "arms": arms,
+                    "ring": ring}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

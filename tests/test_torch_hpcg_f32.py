@@ -18,11 +18,13 @@ import ast
 import importlib.util
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 from test_torch_spans import call_tree, classes, profiled
 from tilespmv_tpu_torch import CSRMatrix, TileSpMV, plain_reference, spans
+from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops import spmv as spmv_mod
 from tilespmv_tpu_torch.ops.cuda.lane_plan import LanePlan
 
@@ -90,6 +92,18 @@ def test_bf16_operator_fails_the_f32_bound(grid):
     op = TileSpMV(csr, device="cpu", dtype=torch.bfloat16)
     x = xs(csr.n, "spmv", torch.bfloat16)
     assert rel_err(arrays, x, op(x)) > 10 * TOL
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=lambda g: "x".join(map(str, g)))
+def test_stencil_27_is_the_benchmark_stencil(grid):
+    """io.generate.stencil_27, which scripts/sparse_probes.py runs as
+    hpcg<N>, holds the benchmark generator's rows and columns."""
+    csr, (indptr, indices, _) = stencil(*grid)
+    got = generate.stencil_27(*grid, dtype=np.float32)
+    assert got.shape == csr.shape and got.data.dtype == np.float32
+    assert np.array_equal(got.indptr, indptr.numpy())
+    assert np.array_equal(got.indices, indices.numpy())
+    assert got.data.shape == got.indices.shape
 
 
 def test_plain_reference_imports_only_torch():

@@ -19,6 +19,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.scripts import microbench_gather as t_gather
 from tilespmv_tpu_torch.scripts import microbench_scatter as t_scatter
@@ -271,28 +272,41 @@ def test_band_probes_edit_the_kernel_source():
 
 def test_sparse_probes_edit_the_kernel_source():
     """Each copy of scripts/sparse_probes.py is sparse.cu as it stands
-    with kSlots set to 8, 16 or 32 slots a thread, one atomic per (tile,
-    row) (tile_atomics), or with a part of its work taken out (empty,
-    nox, noflush: timed only); class_tiles counts a class's tiles and
-    tile rows."""
+    with kRowGroups set to 4, 2 or 1 (4, 8 or 16 rows a thread), the
+    ring cut to 1 or 2 stages or widened to 3 blocks an SM, one atomic
+    per (tile, 4 rows) (tile_atomics), or with a part of its work taken
+    out (empty, nox, noflush, nocompute: timed only); class_tiles counts
+    a class's tiles and tile rows."""
     src = (build.CSRC_DIR / "sparse.cu").read_text()
     out = {arm: edit(src) for arm, edit in sparse_probes.EDITS.items()}
-    assert sparse_probes.ARMS == ("kept", "slots8", "slots16", "slots32",
+    assert sparse_probes.ARMS == ("kept", "rows4", "rows8", "rows16",
+                                  "stages1", "stages2", "blocks3",
                                   "tile_atomics", "empty", "nox",
-                                  "noflush")
-    assert sparse_probes.TIMED_ONLY == ("empty", "nox", "noflush")
+                                  "noflush", "nocompute")
+    assert sparse_probes.TIMED_ONLY == ("empty", "nox", "noflush",
+                                        "nocompute")
     for arm, o in out.items():
         assert o.count("{") == o.count("}"), arm
-    for k in (8, 16, 32):
-        assert out[f"slots{k}"].count("constexpr int kSlots = ") == 1
-        assert f"constexpr int kSlots = {k};" in out[f"slots{k}"]
-    assert "[kLanes * kPad];\n  return;\n" in out["empty"]
-    assert "if (false) {\n    int panel" in out["nox"]
-    assert "atomicAdd(yw" in out["noflush"]
-    assert "if (false && (smask[lane]" in out["noflush"]
+    for rows in (4, 8, 16):
+        o = out[f"rows{rows}"]
+        assert o.count("constexpr int kRowGroups = ") == 1
+        assert f"constexpr int kRowGroups = {16 // rows};" in o
+    assert out["rows4"] == src
+    for n in (1, 2):
+        assert out[f"stages{n}"].count("constexpr int kMaxStages = ") == 1
+        assert f"constexpr int kMaxStages = {n};" in out[f"stages{n}"]
+    assert "constexpr int kMaxBlocks = 3;" in out["blocks3"]
+    assert "unsigned char smem[];\n  return;\n" in out["empty"]
+    assert "if (false) {\n    const float* xg" in out["nox"]
+    assert "atomicAdd(reinterpret_cast<float4*>(" in out["noflush"]
+    assert "if (true) continue;\n" in out["noflush"]
+    assert "if (!bits) continue;\n" not in out["noflush"]
+    slots = "for (int s = lo; s <= end[i]; ++s) {"
+    assert slots in src and slots not in out["nocompute"]
+    assert "for (int s = lo; false; ++s) {" in out["nocompute"]
     assert "__match_any_sync(" in src
     assert "__match_any_sync(" not in out["tile_atomics"]
-    assert "const int lead = l;" in out["tile_atomics"]
+    assert "const unsigned members = 1u << lane;" in out["tile_atomics"]
     # class_tiles: two steps of one chunk, tile rows 3, 3, 5 and 256 + 3
     meta = torch.full((2, 9, 128), -1, dtype=torch.int32)
     meta[0, 0, :3], meta[0, 1, :3] = 0, torch.tensor([3, 3, 5])
@@ -301,6 +315,22 @@ def test_sparse_probes_edit_the_kernel_source():
                         cw=torch.tensor([0, 1]))
     assert sparse_probes.class_tiles(s) == {"tiles": 4, "tile_rows": 3,
                                             "most": 2}
+
+
+def test_sparse_probes_matrices():
+    """scripts/sparse_probes.py's matrices: mixed_large by its corpus
+    name, hpcg<N> as HPCG's 27-point stencil on an N^3 grid in f32; any
+    other name raises."""
+    got = sparse_probes.matrix("hpcg5")
+    want = generate.stencil_27(5, 5, 5, seed=0, dtype=np.float32)
+    assert got.shape == (125, 125) and got.data.dtype == np.float32
+    for f in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert sparse_probes.DEFAULT == ("mixed_large",)
+    assert set(sparse_probes.MATRICES) == {"mixed_large"}
+    for bad in ("hpcg", "hpcgx", "mixed"):
+        with pytest.raises(KeyError):
+            sparse_probes.matrix(bad)
 
 
 def test_spmm_probes_edit_the_kernel_sources():

@@ -145,6 +145,33 @@ def stencil_3d(nx: int, ny: int, nz: int, seed: int = 0,
     return csr_from_coo(m, m, rows, cols, _vals(rng, rows.size, dtype))
 
 
+def stencil_27(nx: int, ny: int, nz: int, seed: int = 0,
+               dtype=np.float64) -> CSRMatrix:
+    """HPCG's 27-point stencil (GenerateProblem_ref.cpp): row ix + nx*iy
+    + nx*ny*iz holds each of its 27 neighbours inside the grid, itself
+    included, in ascending column order. Built as CSR directly, a z-plane
+    at a time, so that a grid of 200^3 (214M entries) needs no sort."""
+    rng = np.random.default_rng(seed)
+    plane = nx * ny
+    i = np.arange(plane, dtype=np.int64)
+    ix, iy = i % nx, i // nx
+    d = np.arange(-1, 2)
+    dz, dy, dx = (a.ravel() for a in np.meshgrid(d, d, d, indexing="ij"))
+    jx, jy = ix[:, None] + dx, iy[:, None] + dy
+    in_plane = (jx >= 0) & (jx < nx) & (jy >= 0) & (jy < ny)
+    off = (dz * plane + dy * nx + dx).astype(np.int64)
+    counts, indices = [], []
+    for iz in range(nz):
+        ok = in_plane & (iz + dz >= 0) & (iz + dz < nz)
+        counts.append(ok.sum(1))
+        indices.append((iz * plane + i[:, None] + off)[ok].astype(np.int32))
+    indptr = np.zeros(plane * nz + 1, dtype=np.int64)
+    np.cumsum(np.concatenate(counts), out=indptr[1:])
+    indices = np.concatenate(indices)
+    return CSRMatrix((plane * nz, plane * nz), indptr, indices,
+                     _vals(rng, indices.size, dtype))
+
+
 def rectangular(m: int, n: int, avg_nnz_per_row: int = 8, seed: int = 0,
                 dtype=np.float64) -> CSRMatrix:
     """Rectangular (tall m >> n or wide n >> m) uniform matrix — the

@@ -151,6 +151,15 @@ def _check_xy_mm(name: str, x, y) -> int:
     return k
 
 
+def _check_aligned16(name: str, x, y) -> None:
+    """x and y of the W-class kernel: 16-byte aligned (it reads x blocks
+    as float4 and adds into y by float4 atomics)."""
+    for arg, t in (("x", x), ("y", y)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start 16-byte aligned, "
+                             f"it starts at byte {t.data_ptr() % 16} of 16")
+
+
 def _p(t):
     return ctypes.c_void_p(t.data_ptr()) if t is not None else None
 
@@ -366,12 +375,14 @@ class ClassLaunch:
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor,
                  stream=None) -> torch.Tensor:
-        """Checks x and y (dtype, contiguity, device; for SpMM k and
-        16-byte alignment), then run()."""
+        """Checks x and y (dtype, contiguity, device; for SpMM k, for
+        SpMM and the W-class 16-byte alignment), then run()."""
         if self.mm:
             _check_xy_mm(self.name, x, y)
         else:
             _check_xy(x, y, self.dtype)
+            if self.name.startswith("sparse"):
+                _check_aligned16(self.name, x, y)
         if y.device != self.device:
             raise ValueError(f"{self.name}: x and y on {y.device}, the "
                              f"class on {self.device}")
@@ -408,8 +419,12 @@ def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """W-class: packed sparse-entry tiles, routed by meta[LROW] (f32 or
-    bf16 values); each row sums its own slots (sparse_rows_reference)."""
-    _check_xy(x, y, _value_dtype(s.val, _F32_BF16))
+    bf16 values); each row sums its own slots (sparse_rows_reference).
+    x and y must start 16-byte aligned, as torch allocates them (a view
+    such as y[1:] is refused: ValueError)."""
+    dtype = _value_dtype(s.val, _F32_BF16)
+    _check_xy(x, y, dtype)
+    _check_aligned16("sparse" + _SUFFIX[dtype], x, y)
     return ClassLaunch("sparse", s, y.device).run(x, y)
 
 
