@@ -3,8 +3,10 @@ operator's first call, reused by every later one, dropped when the
 buffers move or are replaced.
 
 On the CPU each call of `op` / `op.matmat` is bit-equal to the
-functional `spmv(op.device_plan(), x)` / `spmm(...)`, which builds
-nothing, over f32, f64 and bf16 plans of test_torch_spans.py's matrices;
+functional `spmv(op.device_plan(), x)` / `spmm(...)`, which run a call
+state made for the call and count no build, and check x with the
+operator's message, over f32, f64 and bf16 plans of test_torch_spans.py's
+matrices;
 `spans.state_builds()` rises by one an operator (a column part and `.T`
 are operators of their own) and by one more after `_apply` or a replaced
 buffer; each call gives a y of its own, and the padded x it keeps has a
@@ -146,6 +148,27 @@ def test_wrong_shapes_raise_as_before(first):
         op.matmat(torch.zeros(n))
     with pytest.raises(ValueError, match=r"^X has shape"):
         op.matmat(torch.zeros(n - 1, 3))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_functional_path_raises_the_operators_message(dtype):
+    """spmv / spmm on a plan check x as the operator does, with its
+    message, and count no state build."""
+    _, op = operator("mixed" if dtype != "bf16" else "hyb", dtype)
+    plan = op.device_plan()
+    n = plan.n
+    before = spans.state_builds()
+    with pytest.raises(ValueError, match=rf"^x has shape \({n + 1},\), "
+                       rf"expected \({n},\)$"):
+        spmv(plan, torch.zeros(n + 1))
+    with pytest.raises(ValueError, match=rf"^X has shape \({n},\), "
+                       rf"expected \({n}, k\)$"):
+        spmm(plan, torch.zeros(n))
+    with pytest.raises(ValueError, match=r"^X has shape"):
+        spmm(plan, torch.zeros(n - 1, K))
+    spmv(plan, torch.zeros(n))
+    spmm(plan, torch.zeros(n, K))
+    assert spans.state_builds() == before
 
 
 @pytest.mark.parametrize("kind", ["spmv", "matmat"])

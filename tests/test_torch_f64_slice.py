@@ -21,6 +21,8 @@ from tilespmv_tpu_torch import TileSpMV, load_mtx
 from tilespmv_tpu_torch.io import generate as t_gen
 from tilespmv_tpu_torch.io.mmio import CSRMatrix as TCSR
 from tilespmv_tpu_torch.ops.cuda import kernels, reference
+from tilespmv_tpu_torch.ops.cuda.reference import class_order
+from tilespmv_tpu_torch.ops.spmv import spmm, spmv
 
 CASES = {
     "banded": ("banded", (2048, 2048, 8), dict(seed=3)),
@@ -120,7 +122,13 @@ def test_f64_mtx_entry_and_dtype_checks():
         with pytest.raises(TypeError):
             wrap(cls, xp.float(), torch.zeros(ylen))
     assert kernels.launch_counts() == before
-    # the fused SpMM kernels take f32 and bf16 plans only
-    with pytest.raises(TypeError):
-        kernels.spmm_cuda(op.device_plan(), torch.zeros(csr.n, 2,
-                                                        dtype=torch.float64))
+    # the fused SpMM kernels take f32 and bf16 class values only: an f64
+    # plan's SpMM is one SpMV per column, and no SpMM kernel is counted
+    for _, kind, cls in class_order(plan):
+        with pytest.raises(TypeError):
+            kernels.ClassLaunch(kind, cls, xp.device, mm=True)
+    X = torch.linspace(-1, 1, 2 * plan.n, dtype=torch.float64).view(-1, 2)
+    before = kernels.launch_counts()
+    assert torch.equal(spmm(plan, X), torch.stack(
+        [spmv(plan, X[:, r]) for r in range(2)], dim=1))
+    assert kernels.launch_counts() == before

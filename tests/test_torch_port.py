@@ -15,6 +15,7 @@ from tilespmv_tpu_torch.core import native
 from tilespmv_tpu_torch.io import generate
 from tilespmv_tpu_torch.ops.cuda import build, kernels, reference
 from tilespmv_tpu_torch.ops.cuda.lane_plan import build_lane_plan
+from tilespmv_tpu_torch.ops.spmv import spmv
 from tilespmv_tpu_torch.core.convert import tile_create
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "tilespmv_tpu_torch"
@@ -62,7 +63,7 @@ def test_wrappers_use_plain_version_on_cpu():
         plain(cls, xp, yb)
         assert torch.equal(ya, yb)
     assert kernels.launch_counts() == before
-    torch.testing.assert_close(kernels.spmv_cuda(plan, x),
+    torch.testing.assert_close(spmv(plan, x),
                                reference.spmv_reference(plan, x))
 
 

@@ -28,6 +28,7 @@ from tilespmv_tpu_torch import TileSpMV
 from tilespmv_tpu_torch.io import generate as t_gen
 from tilespmv_tpu_torch.ops.cuda import kernels
 from tilespmv_tpu_torch.ops.cuda import reference as ref
+from tilespmv_tpu_torch.ops.spmv import spmm
 from test_torch_kernels import close, plans, window_flat, y_len
 
 KS = [2, 5, 16]
@@ -127,8 +128,7 @@ def test_spmm_wrappers_use_plain_version_on_cpu():
         plain(cls, xp, yb, *extra)
         assert torch.equal(ya, yb) and ya.abs().max() > 0
     assert kernels.launch_counts() == before
-    torch.testing.assert_close(kernels.spmm_cuda(plan, x),
-                               ref.spmm_reference(plan, x))
+    torch.testing.assert_close(spmm(plan, x), ref.spmm_reference(plan, x))
     assert kernels.launch_counts() == before
 
 
@@ -151,12 +151,18 @@ def test_stream_pair_touches_only_its_columns():
 
 @pytest.mark.parametrize("k", [1, 17])
 def test_fused_wrappers_refuse_k_outside_their_range(k):
+    """Each wrapper on a class of its own kind (it checks the class
+    before x and y)."""
     plan = _cpu_plan()
+    band = TileSpMV(t_gen.banded(512, 512, 10, seed=5),
+                    device="cpu").device_plan().band
+    sparse, = TileSpMV(t_gen.random_uniform(512, 512, 0.003, seed=3),
+                       device="cpu").device_plan().sparses
     xp = torch.zeros(max(plan.x_padded_len, plan.x_padded_len128), k)
     y = torch.zeros(y_len(plan), k)
     for wrap, cls in ((kernels.dense_spmm, plan.dense),
-                      (kernels.band_spmm, plan.dense),
-                      (kernels.sparse_spmm, plan.dense),
+                      (kernels.band_spmm, band),
+                      (kernels.sparse_spmm, sparse),
                       (kernels.stream_spmm, plan.stream)):
         with pytest.raises(ValueError, match="k = "):
             wrap(cls, xp, y)

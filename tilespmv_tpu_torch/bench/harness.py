@@ -85,15 +85,7 @@ def _reps_cuda(op: TileSpMV, x: torch.Tensor, warmup: int, reps: int,
                iters: int) -> tuple:
     """(graph ms per call for each rep, eager ms per call for each
     rep) on the card."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        op(x)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            op(x)
+    graph = profiling.capture_graph(lambda: op(x), iters)
 
     def eager():
         for _ in range(iters):

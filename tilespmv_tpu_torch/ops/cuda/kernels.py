@@ -1,5 +1,4 @@
-"""Wrappers of the CUDA class kernels, and the SpMV and SpMM they
-assemble.
+"""Wrappers of the CUDA class kernels.
 
 Each SpMV wrapper `*_spmv(cls, x, y)` checks its inputs and adds its
 class's contribution into the flat `y` in place (see reference.py for
@@ -12,15 +11,15 @@ f32), float64 for the band, dense and stream classes of an f64 plan (the
 (rows, k) and y (ylen, k), row-major, in float32, on f32 or bf16 values
 (an f64 operator runs one SpMV per column). `x` must be padded by
 `reference.pad_x` and `y` span the plan's windows, as
-`reference.assemble` / `assemble_mm` allocate them: the kernels index
-both from plan values. Given CPU tensors a wrapper runs the
-class's plain PyTorch version; given CUDA tensors it launches the kernel
-on the current stream (building the library on first use) or raises.
+`reference.assemble` allocates them: the kernels index both from plan
+values. Given CPU tensors a wrapper runs the class's plain PyTorch
+version (reference.PLAIN); given CUDA tensors it launches the kernel on
+the current stream (building the library on first use) or raises.
 `LAUNCHES` counts kernel launches per kernel (`band` the f32 band
 kernel, `band_f64` the f64 one, `band_bf16` the bf16 one, ...); it moves
 only where a kernel is launched. Each wrapper makes a `ClassLaunch` (the
-class's checks, entry point and plan arguments) and runs it; an operator
-keeps one per class and calls it, which checks x and y alone.
+class's checks, entry point and plan arguments) and calls it; an
+operator keeps one per class and calls it, which checks x and y alone.
 
 `microbench_gather` and `microbench_scatter` wrap the two
 microbenchmark kernels (the reference's scripts/microbench_*.py), whose
@@ -35,16 +34,11 @@ import torch
 
 from . import build
 from .lane_plan import (DENSE_GROUP, DENSE_MROWS, PANEL_TC, ROW_WINDOW,
-                        LanePlan, acc_dtype, prefix_rows, sparse_meta_rows)
+                        acc_dtype, prefix_rows, sparse_meta_rows)
 from .reference import (MB_GATHER_R, MB_PE_ROWS, MB_ROWS,
-                        MB_SCATTER_ARMS, MB_SLABS, assemble,
-                        assemble_mm,
-                        band_reference, band_spmm_reference,
-                        dense_reference, dense_spmm_reference,
+                        MB_SCATTER_ARMS, MB_SLABS, PLAIN,
                         microbench_gather_reference,
-                        microbench_scatter_reference,
-                        sparse_rows_reference, sparse_spmm_reference,
-                        stream_rows_reference)
+                        microbench_scatter_reference)
 from .stream_plan import LANES, SPAN_ROWS, SUBS, step_rows
 
 # k the fused SpMM kernels are built for (csrc/spmm_k.cuh): the range the
@@ -325,31 +319,24 @@ def _stream_args(st, dev, dt, group: int) -> tuple:
                                                    st.s_batch)))
 
 
-# kind: (its checks and launch arguments, (SpMV kernel, its plain
-# version), (SpMM kernel, its plain version))
-_KINDS = {
-    "band": (_band_args, ("band", band_reference),
-             ("band_spmm", band_spmm_reference)),
-    "dense": (_dense_args, ("dense", dense_reference),
-              ("dense_spmm", dense_spmm_reference)),
-    "sparse": (_sparse_args, ("sparse", sparse_rows_reference),
-               ("sparse_spmm", sparse_spmm_reference)),
-    "stream": (_stream_args, ("stream", stream_rows_reference),
-               ("stream2", stream_rows_reference)),
-}
+# kind: (its checks and launch arguments, SpMV kernel, SpMM kernel); the
+# plain versions are reference.PLAIN's
+_KINDS = {"band": (_band_args, "band", "band_spmm"),
+          "dense": (_dense_args, "dense", "dense_spmm"),
+          "sparse": (_sparse_args, "sparse", "sparse_spmm"),
+          "stream": (_stream_args, "stream", "stream2")}
 
 
 class ClassLaunch:
     """One class kernel over one class, its plan side done once: the
-    class's value dtype and plan arrays checked on `dev` (the wrappers'
-    `_check_*`), its entry point resolved from `build.load()` and its
-    plan arguments made. `kind` is "band", "dense", "sparse" or
-    "stream"; `mm` picks the SpMM kernel (f32 and bf16 values; the
-    stream classes' is stream2.cu); `group` is stream_spmv's. Calling it
-    with a padded x and a y checks those alone and launches, as the
-    wrapper does; on the CPU it runs the class's plain version. The plan
-    arrays must stay where they are: a launch passes the addresses it
-    took when it was made."""
+    class's value dtype and plan arrays checked on `dev` (`_check_*`),
+    its entry point resolved from `build.load()` and its plan arguments
+    made. `kind` is "band", "dense", "sparse" or "stream"; `mm` picks the
+    SpMM kernel (f32 and bf16 values; the stream classes' is stream2.cu);
+    `group` is stream_spmv's. Calling it with a padded x and a y checks
+    those alone and launches; on the CPU it runs the class's plain
+    version. The plan arrays must stay where they are: a launch passes
+    the addresses it took when it was made."""
 
     __slots__ = ("cls", "name", "dtype", "mm", "device", "fn", "head",
                  "tail", "nk", "plain")
@@ -357,7 +344,7 @@ class ClassLaunch:
     def __init__(self, kind: str, cls, dev: torch.device, mm: bool = False,
                  group: int = STREAM_GROUP):
         args, mv, mmk = _KINDS[kind]
-        kernel, self.plain = mmk if mm else mv
+        kernel, self.plain = (mmk if mm else mv), PLAIN[mm][kind]
         self.dtype = _value_dtype(cls.val, _F32_BF16 if mm or kind == "sparse"
                                   else tuple(_SUFFIX))
         extra = (group,) if kind == "stream" else ()
@@ -376,7 +363,9 @@ class ClassLaunch:
     def __call__(self, x: torch.Tensor, y: torch.Tensor,
                  stream=None) -> torch.Tensor:
         """Checks x and y (dtype, contiguity, device; for SpMM k, for
-        SpMM and the W-class 16-byte alignment), then run()."""
+        SpMM and the W-class 16-byte alignment), then launches on
+        `stream` (a cudaStream_t handle; None: the current stream), or
+        runs the plain version on the CPU."""
         if self.mm:
             _check_xy_mm(self.name, x, y)
         else:
@@ -386,13 +375,6 @@ class ClassLaunch:
         if y.device != self.device:
             raise ValueError(f"{self.name}: x and y on {y.device}, the "
                              f"class on {self.device}")
-        return self.run(x, y, stream)
-
-    def run(self, x: torch.Tensor, y: torch.Tensor,
-            stream=None) -> torch.Tensor:
-        """The launch on `stream` (a cudaStream_t handle; None: the
-        current stream), x and y unchecked; the plain version on the
-        CPU."""
         if self.fn is None:
             return self.plain(self.cls, x, y)
         err = self.fn(*self.head, x.data_ptr(), y.data_ptr(), *self.tail,
@@ -405,16 +387,14 @@ class ClassLaunch:
 def band_spmv(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band (brick) class: y[(cw*256 + t)*16 + i] += brick row sums
     (f32, f64 or bf16 values)."""
-    _check_xy(x, y, _value_dtype(bd.val))
-    return ClassLaunch("band", bd, y.device).run(x, y)
+    return ClassLaunch("band", bd, y.device)(x, y)
 
 
 def dense_spmv(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dense class: densified 16x16 tiles, routed by meta[LROW] (f32, f64
     or bf16 values); the kernel runs the lane groups in `groups` and, in
     each tile, the columns in its `cmask`."""
-    _check_xy(x, y, _value_dtype(d.val))
-    return ClassLaunch("dense", d, y.device).run(x, y)
+    return ClassLaunch("dense", d, y.device)(x, y)
 
 
 def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -422,10 +402,7 @@ def sparse_spmv(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     bf16 values); each row sums its own slots (sparse_rows_reference).
     x and y must start 16-byte aligned, as torch allocates them (a view
     such as y[1:] is refused: ValueError)."""
-    dtype = _value_dtype(s.val, _F32_BF16)
-    _check_xy(x, y, dtype)
-    _check_aligned16("sparse" + _SUFFIX[dtype], x, y)
-    return ClassLaunch("sparse", s, y.device).run(x, y)
+    return ClassLaunch("sparse", s, y.device)(x, y)
 
 
 def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
@@ -433,34 +410,27 @@ def stream_spmv(st, x: torch.Tensor, y: torch.Tensor,
     """Stream class: entry slabs, each entry added into its own output
     row `erow` (f32, f64 or bf16 values); a block takes `group` slabs of
     a step."""
-    _check_xy(x, y, _value_dtype(st.val))
-    return ClassLaunch("stream", st, y.device, group=group).run(x, y)
+    return ClassLaunch("stream", st, y.device, group=group)(x, y)
 
 
 def band_spmm(bd, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Band class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k), every product taken (band_reference)."""
-    _value_dtype(bd.val, _F32_BF16)
-    _check_xy_mm("band_spmm", x, y)
-    return ClassLaunch("band", bd, y.device, mm=True).run(x, y)
+    return ClassLaunch("band", bd, y.device, mm=True)(x, y)
 
 
 def dense_spmm(d, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Dense class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k); the kernel runs the lane groups in `groups` and, in
     each tile, the columns in its `cmask` (dense_active_reference)."""
-    _value_dtype(d.val, _F32_BF16)
-    _check_xy_mm("dense_spmm", x, y)
-    return ClassLaunch("dense", d, y.device, mm=True).run(x, y)
+    return ClassLaunch("dense", d, y.device, mm=True)(x, y)
 
 
 def sparse_spmm(s, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """W-class (f32 or bf16 values) over the k columns of x (rows, k)
     into y (ylen, k); each row sums its own slots
     (sparse_spmm_reference)."""
-    _value_dtype(s.val, _F32_BF16)
-    _check_xy_mm("sparse_spmm", x, y)
-    return ClassLaunch("sparse", s, y.device, mm=True).run(x, y)
+    return ClassLaunch("sparse", s, y.device, mm=True)(x, y)
 
 
 def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -468,29 +438,7 @@ def stream_spmm(st, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     into y (ylen, k) in one launch: each entry added into its own output
     row `erow` of every column (stream_rows_reference); a block takes
     STREAM_GROUP slabs of a step."""
-    _value_dtype(st.val, _F32_BF16)
-    _check_xy_mm("stream_spmm", x, y)
-    return ClassLaunch("stream", st, y.device, mm=True).run(x, y)
-
-
-def spmv_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through the class kernels, in the plan's dtype (plan
-    tensors and x on one CUDA device; on CPU tensors every class runs
-    its plain version)."""
-    return assemble(plan, x, band_spmv, dense_spmv, sparse_spmv,
-                    stream_spmv)
-
-
-def spmm_cuda(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, X (n, k) with k in SPMM_K, through the fused SpMM
-    kernels; on CPU tensors every class runs its plain version. f32 and
-    bf16 plans only."""
-    if plan.dtype not in _F32_BF16:
-        raise TypeError(f"the fused SpMM kernels take f32 and bf16 plans, "
-                        f"not {plan.dtype} (an f64 operator runs one SpMV "
-                        "per column)")
-    return assemble_mm(plan, x, band_spmm, dense_spmm, sparse_spmm,
-                       stream_spmm)
+    return ClassLaunch("stream", st, y.device, mm=True)(x, y)
 
 
 def _mb_out(dev, nsteps: int) -> torch.Tensor:

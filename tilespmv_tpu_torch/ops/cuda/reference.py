@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the class kernels, and the SpMV and SpMM
-they assemble.
+"""Plain PyTorch versions of the class kernels, and the steps of a call:
+`assemble`, which the operator runs with the class kernels and
+`spmv_reference` / `spmm_reference` with their plain versions.
 
 Each `*_reference(cls, x, y)` adds its class's contribution into the
 output `y` in place and returns it. `x` is the padded x (see
@@ -38,6 +39,7 @@ same arithmetic: what the class computes, whatever layout holds it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -292,6 +294,13 @@ def stream_rows_reference(st, x: torch.Tensor,
 band_spmm_reference = band_reference
 dense_spmm_reference = dense_active_reference
 sparse_spmm_reference = sparse_rows_reference
+# the plain version of each kind's SpMV (False) and SpMM (True) kernel
+PLAIN = {False: dict(band=band_reference, dense=dense_reference,
+                     sparse=sparse_rows_reference,
+                     stream=stream_rows_reference),
+         True: dict(band=band_spmm_reference, dense=dense_spmm_reference,
+                    sparse=sparse_spmm_reference,
+                    stream=stream_rows_reference)}
 
 
 def stream2_reference(st, x: torch.Tensor, y: torch.Tensor,
@@ -430,14 +439,6 @@ def pad_x(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     return xp
 
 
-def _checked_x(plan: LanePlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
-    if x.dim() != ndim or x.shape[0] != plan.n:
-        want = "(n,)" if ndim == 1 else "(n, k)"
-        raise ValueError(f"x has shape {tuple(x.shape)}, expected {want} "
-                         f"with n = {plan.n}")
-    return x.to(plan.dtype)
-
-
 def zero_y(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """One zero y, (ylen,) or (ylen, k), in the plan's compute dtype,
     spanning the panel classes' and the stream classes' windows: every
@@ -486,50 +487,63 @@ def finish(plan: LanePlan, x: torch.Tensor,
         return y[: plan.m].to(plan.dtype)
 
 
-def _assemble(plan: LanePlan, x: torch.Tensor, ndim: int, band, dense,
-              sparse, stream) -> torch.Tensor:
-    fns = dict(band=band, dense=dense, sparse=sparse, stream=stream)
+def checked_x(x, dtype: torch.dtype, n: int, ndim: int,
+              device=None) -> torch.Tensor:
+    """x as a tensor of `dtype` on `device` (None: where x is), of shape
+    (n,) for ndim 1 or (n, k) for ndim 2; ValueError naming both shapes
+    otherwise."""
+    x = torch.as_tensor(x, dtype=dtype, device=device)
+    if x.dim() != ndim or x.shape[0] != n:
+        want = f"({n},)" if ndim == 1 else f"({n}, k)"
+        raise ValueError(f"{'x' if ndim == 1 else 'X'} has shape "
+                         f"{tuple(x.shape)}, expected {want}")
+    return x
+
+
+def assemble(plan: LanePlan, x: torch.Tensor, launches,
+             pad=None) -> torch.Tensor:
+    """y = A @ x for x (n,), or Y = A @ X for X (n, k) all k columns a
+    launch, x in the plan's value dtype, in the reference's class order
+    (spmm_pallas's for X, tilespmv_tpu/ops/pallas/kernels.py:1069-1140).
+    In span `tsp.prep` (spans.py): the current CUDA stream's handle read
+    once (None on the CPU), x padded by `pad(x, stream)` (None: pad_x),
+    y zeroed (zero_y); then each (span, launch) of `launches`, one a
+    class in class_order, runs launch(x padded, y, stream) in its span;
+    then `finish`."""
     with span("tsp.prep"):
-        x = _checked_x(plan, x, ndim)
-        xp = pad_x(plan, x)
+        stream = None
+        if x.is_cuda:
+            stream = torch.cuda.current_stream().cuda_stream
+        xp = pad_x(plan, x) if pad is None else pad(x, stream)
         y = zero_y(plan, x)
-    for name, kind, cls in class_order(plan):
+    for name, launch in launches:
         with span(name):
-            fns[kind](cls, xp, y)
+            launch(xp, y, stream)
     return finish(plan, x, y)
 
 
-def assemble(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-             stream) -> torch.Tensor:
-    """y = A @ x with the given class functions, in the reference's
-    class order (class_order, then the residual): x cast to the plan's
-    value dtype, the classes summed in its compute dtype and y cast to
-    the value dtype once, at the end. Spans (see spans.py): `tsp.prep`
-    (x checked and cast, padded; y zeroed), `tsp.launch.<class>` around
-    each class function and `tsp.finish` (the residual and y's cast)."""
-    return _assemble(plan, x, 1, band, dense, sparse, stream)
+def _plain_launch(fn, cls, x, y, stream):
+    """A class's plain version fn as a launch (it takes no stream)."""
+    return fn(cls, x, y)
 
 
-def assemble_mm(plan: LanePlan, x: torch.Tensor, band, dense, sparse,
-                stream) -> torch.Tensor:
-    """Y = A @ X for X (n, k) with the given class functions, in
-    spmm_pallas's class order (tilespmv_tpu/ops/pallas/kernels.py:
-    1069-1140), each class over all k columns in one call (spmm_pallas
-    takes the stream classes an RHS pair a call); assemble's spans."""
-    return _assemble(plan, x, 2, band, dense, sparse, stream)
+def _reference(plan: LanePlan, x, ndim: int) -> torch.Tensor:
+    plain = PLAIN[ndim == 2]
+    return assemble(plan, checked_x(x, plan.dtype, plan.n, ndim), [
+        (name, functools.partial(_plain_launch, plain[kind], cls))
+        for name, kind, cls in class_order(plan)])
 
 
 def spmv_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x with the plain PyTorch class versions (any device)."""
-    return assemble(plan, x, band_reference, dense_reference,
-                    sparse_rows_reference, stream_rows_reference)
+    """y = A @ x with the plain PyTorch class versions (any device), x
+    cast to the plan's value dtype."""
+    return _reference(plan, x, 1)
 
 
 def spmm_reference(plan: LanePlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, X (n, k), with the plain PyTorch class versions (any
-    device)."""
-    return assemble_mm(plan, x, band_spmm_reference, dense_spmm_reference,
-                       sparse_spmm_reference, stream_rows_reference)
+    device), X cast to the plan's value dtype."""
+    return _reference(plan, x, 2)
 
 
 # The microbenchmarks' shapes (scripts/microbench_{gather,scatter}.py of

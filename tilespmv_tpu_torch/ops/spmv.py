@@ -35,12 +35,12 @@ read x from global memory, so a plan of any width runs as one.
 An operator builds its call state at its first call (`_CallState`: the
 device plan, each class's checked launch, a padded x kept per stream)
 and every later call reuses it; moving its buffers (`.to()`) drops it.
-The functional `spmv(plan, x)` / `spmm(plan, X)` run a device plan and
-dispatch on its type: an SpMVPlan through the xla engines, a LanePlan on
-a CUDA device through the class kernels (ops/cuda/kernels.py::spmv_cuda
-/ spmm_cuda), on the CPU through their plain versions
-(ops/cuda/reference.py::spmv_reference / spmm_reference). No path gives
-way to another device or backend.
+The functional `spmv(plan, x)` / `spmm(plan, X)` run a device plan
+through a call state of their own, made for the call: an SpMVPlan
+through the xla engines, a LanePlan through the class kernels on a CUDA
+device and their plain versions on the CPU, each class's launch inside
+ops/cuda/reference.py::assemble. No path gives way to another device or
+backend.
 """
 from __future__ import annotations
 
@@ -55,46 +55,30 @@ from ..core.convert import tile_create
 from ..core.tile_matrix import TileMatrix
 from ..io.mmio import CSRMatrix
 from ..spans import phase, record_plan, span, state_built
-from .cuda.kernels import SPMM_K, ClassLaunch, spmm_cuda, spmv_cuda
+from .cuda.kernels import SPMM_K, ClassLaunch
 from .cuda.lane_plan import LanePlan, build_lane_plan, map_arrays
-from .cuda.reference import (class_order, finish, pad_x, plan_tensor,
-                             spmm_reference, spmv_reference, zero_y)
+from .cuda.reference import (assemble, checked_x, class_order, pad_x,
+                             plan_tensor)
 from .plan import SpMVPlan, build_plan, map_plan_arrays
 from .xla_spmv import spmm_xla, spmv_xla
 
 BACKENDS = ("auto", "xla", "pallas")
 
 
-def _run(plan: LanePlan, x: torch.Tensor, cuda_fn, cpu_fn) -> torch.Tensor:
-    if x.device.type == "cuda":
-        return cuda_fn(plan, x)
-    if x.device.type == "cpu":
-        return cpu_fn(plan, x)
-    raise ValueError(f"TileSpMV runs on CUDA or CPU, not {x.device}")
-
-
 def spmv(plan: Union[LanePlan, SpMVPlan], x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x over a plan whose tensors lie on x's device: an SpMVPlan
-    through the xla engines; a LanePlan through the class kernels on a
-    CUDA device, their plain versions on the CPU."""
-    if isinstance(plan, SpMVPlan):
-        return spmv_xla(plan, x)
-    return _run(plan, x, spmv_cuda, spmv_reference)
+    """y = A @ x over a plan whose tensors lie on x's device, x cast to
+    the plan's value dtype: an SpMVPlan through the xla engines; a
+    LanePlan through the class kernels on a CUDA device, their plain
+    versions on the CPU."""
+    x = checked_x(x, plan.dtype, plan.n, 1)
+    return _CallState(plan, x.device).spmv(x)
 
 
 def spmm(plan: Union[LanePlan, SpMVPlan], x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for X (n, k) over a plan whose tensors lie on X's
-    device: an SpMVPlan through the xla engines on all k columns at
-    once; a LanePlan through the fused SpMM kernels for k in SPMM_K
-    (2..16) on an f32 or bf16 plan, one SpMV per column otherwise and on
-    an f64 one, as the reference dispatches
-    (tilespmv_tpu/ops/spmv.py:69-89)."""
-    if isinstance(plan, SpMVPlan):
-        return spmm_xla(plan, x)
-    if x.shape[1] not in SPMM_K or plan.dtype == torch.float64:
-        return torch.stack([spmv(plan, x[:, r])
-                            for r in range(x.shape[1])], dim=1)
-    return _run(plan, x, spmm_cuda, spmm_reference)
+    device, as `_CallState.spmm` runs it."""
+    x = checked_x(x, plan.dtype, plan.n, 2)
+    return _CallState(plan, x.device).spmm(x)
 
 
 class _CallState:
@@ -103,9 +87,8 @@ class _CallState:
     (kernels.ClassLaunch; the SpMM ones too on an f32 or bf16 plan); and
     one zero-padded x per trailing shape of x and stream, whose padding
     no kernel writes, so that a call copies x into its first n rows
-    alone. `spmv` and `spmm` run as the functional `spmv` / `spmm` do on
-    the same plan: the same kernels in the same order, with the same
-    spans. A call while a CUDA graph is captured pads x afresh."""
+    alone. The functional `spmv` / `spmm` run a state made for the call.
+    A call while a CUDA graph is captured pads x afresh."""
 
     def __init__(self, plan: Union[LanePlan, SpMVPlan],
                  device: torch.device):
@@ -124,30 +107,24 @@ class _CallState:
                        for name, kind, c in order]
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x, x (n,) checked and in the plan's value dtype."""
         if self.mv is None:
             return spmv_xla(self.plan, x)
-        return self._assemble(x, self.mv)
+        return assemble(self.plan, x, self.mv, self._pad)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        """Y = A @ X, X (n, k) checked and in the plan's value dtype: an
+        SpMVPlan through the xla engines on all k columns at once; a
+        LanePlan through the fused SpMM kernels for k in SPMM_K (2..16)
+        on an f32 or bf16 plan, one SpMV per column otherwise and on an
+        f64 one, as the reference dispatches
+        (tilespmv_tpu/ops/spmv.py:69-89)."""
         if self.mv is None:
             return spmm_xla(self.plan, x)
         if self.mm is None or x.shape[1] not in SPMM_K:
             return torch.stack([self.spmv(x[:, r])
                                 for r in range(x.shape[1])], dim=1)
-        return self._assemble(x, self.mm)
-
-    def _assemble(self, x: torch.Tensor, launches: list) -> torch.Tensor:
-        """reference.assemble's steps and spans on x, checked and cast."""
-        with span("tsp.prep"):
-            stream = None
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream().cuda_stream
-            xp = self._pad(x, stream)
-            y = zero_y(self.plan, x)
-        for name, launch in launches:
-            with span(name):
-                launch(xp, y, stream)
-        return finish(self.plan, x, y)
+        return assemble(self.plan, x, self.mm, self._pad)
 
     def _pad(self, x: torch.Tensor, stream) -> torch.Tensor:
         """x in the first n rows of the kept padded x of its trailing
@@ -449,12 +426,7 @@ class TileSpMV(nn.Module):
                     self._state = st
                     state_built()
                 device, n = st.device, st.n
-            x = torch.as_tensor(x, dtype=self.dtype, device=device)
-            if x.dim() != ndim or x.shape[0] != n:
-                want = f"({n},)" if ndim == 1 else f"({n}, k)"
-                raise ValueError(f"{'x' if ndim == 1 else 'X'} has shape "
-                                 f"{tuple(x.shape)}, expected {want}")
-            return x, st
+            return checked_x(x, self.dtype, n, ndim, device), st
 
     def forward(self, x) -> torch.Tensor:
         """y = A @ x, in span `tsp.forward` (spans.py)."""

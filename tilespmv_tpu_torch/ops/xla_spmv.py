@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .cuda.reference import checked_x
 from .plan import (ColEngine, CsrEngine, DenseEngine, EllEngine,
                    ResidualEngine, RowEngine, SpMVPlan)
 
@@ -134,21 +135,13 @@ def _assemble(plan: SpMVPlan, x: torch.Tensor) -> torch.Tensor:
     return y[: plan.m]
 
 
-def _checked(plan: SpMVPlan, x: torch.Tensor, ndim: int) -> torch.Tensor:
-    if x.dim() != ndim or x.shape[0] != plan.n:
-        want = "(n,)" if ndim == 1 else "(n, k)"
-        raise ValueError(f"x has shape {tuple(x.shape)}, expected {want} "
-                         f"with n = {plan.n}")
-    return x.to(plan.dtype)
-
-
 def spmv_xla(plan: SpMVPlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x over an SpMVPlan whose tensors lie on x's device, x cast
     to the plan's value dtype."""
-    return _assemble(plan, _checked(plan, x, 1))
+    return _assemble(plan, checked_x(x, plan.dtype, plan.n, 1))
 
 
 def spmm_xla(plan: SpMVPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for X (n, k) over an SpMVPlan, all k columns through
     each engine at once."""
-    return _assemble(plan, _checked(plan, x, 2))
+    return _assemble(plan, checked_x(x, plan.dtype, plan.n, 2))

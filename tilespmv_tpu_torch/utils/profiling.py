@@ -8,10 +8,10 @@ so the cost of every class is visible, and `trace_context` records a
 `torch.profiler` trace for deep dives. `csr_bound`, `band_bound` and
 `class_bound` give the least time the card could take for a class's
 work, the yardstick its kernel's time is read against; `graph_ms` and
-`ab_arms` time kernels and the probe scripts' arms on the card;
-`step_time` and `launch_time` time the microbenchmarks' steps, and
-`shared_floor_ns` gives a step's shared-memory floor from its
-`bank_wavefronts`.
+`ab_arms` time kernels and the probe scripts' arms on the card in CUDA
+graphs (`capture_graph`); `step_time` and `launch_time` time the
+microbenchmarks' steps, and `shared_floor_ns` gives a step's
+shared-memory floor from its `bank_wavefronts`.
 """
 from __future__ import annotations
 
@@ -215,12 +215,10 @@ def class_bound(classes, k: int = 1) -> dict:
                     sum(p["flops"] for p in parts), xbytes)
 
 
-def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
-    """Device time of one fn() on the card, in ms: `iters` calls
-    captured in one CUDA graph (after a warm-up call on a side stream),
-    the median over `reps` of the CUDA-event time of a replay, over
-    `iters`. It leaves out the host's time per call (checks, launch
-    calls), which sets the pace of a loop of kernels shorter than it."""
+def capture_graph(fn, iters: int) -> torch.cuda.CUDAGraph:
+    """One CUDA graph of `iters` calls of fn(), captured after a warm-up
+    call on a side stream (which capture needs before fn's first call in
+    a graph)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -230,6 +228,16 @@ def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return graph
+
+
+def graph_ms(fn, reps: int = 5, iters: int = 20) -> float:
+    """Device time of one fn() on the card, in ms: `iters` calls
+    captured in one CUDA graph (capture_graph), the median over `reps`
+    of the CUDA-event time of a replay, over `iters`. It leaves out the
+    host's time per call (checks, launch calls), which sets the pace of
+    a loop of kernels shorter than it."""
+    graph = capture_graph(fn, iters)
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -288,24 +296,38 @@ def op_classes(op) -> list:
     out = []
     for part in (op.parts if op.parts is not None else [op]):
         plan = part.device_plan()
-        out += [c for c in (plan.dense, plan.band, *plan.sparses,
-                            plan.stream, plan.stream2) if c is not None]
+        out += [c for _, _, c in reference.class_order(plan)]
         if plan.residual.val.shape[0]:
             out.append(plan.residual)
     return out
+
+
+def _class_fields(kind: str, c) -> tuple:
+    """(bytes, counts) that profile_engines gives a class of `kind`: its
+    value and index arrays (the reference's count) and its shape."""
+    if kind == "band":
+        return _nbytes(c.val, c.bloc), dict(chunks=int(c.val.shape[0]),
+                                            c_cols=c.c_cols)
+    if kind == "stream":
+        return (_nbytes(c.val, c.vidx, c.planes),
+                dict(slabs=int(c.nslabs), rounds=c.rounds,
+                     s_batch=c.s_batch))
+    return _nbytes(c.val, c.meta), dict(chunks=int(c.val.shape[0]),
+                                        t_lanes=c.t_lanes)
 
 
 def profile_engines(op, x=None) -> dict[str, dict]:
     """Per-class timing breakdown of a TileSpMV operator (f32, f64 or
     bf16).
 
-    Returns {class: {"us", "bytes", "gbps", ...}} with the classes
-    "dense", "band", "sparse_w{W}", "stream", "stream2" and "residual"
-    that the plan has, in the main path's order, and the class's counts
-    (dense and W-classes `chunks`, `t_lanes`; band `chunks`, `c_cols`;
-    stream classes `slabs`, `rounds`, `s_batch`). `bytes` counts the
-    class's value and index arrays (the reference's count); `gbps` is
-    bytes / time. Each class runs through its wrapper in
+    Returns {class: {"us", "bytes", "gbps", ...}} with a key for each
+    class of the plan in the main path's order (reference.class_order:
+    its span's suffix, "dense", "band", "sparse_w{W}", "stream",
+    "stream2"), then "residual" where the plan has one, and the class's
+    counts (dense and W-classes `chunks`, `t_lanes`; band `chunks`,
+    `c_cols`; stream classes `slabs`, `rounds`, `s_batch`). `bytes`
+    counts the class's value and index arrays (the reference's count);
+    `gbps` is bytes / time. Each class runs through its wrapper in
     ops/cuda/kernels.py into its own zeroed y: on a CUDA operator that
     launches the kernel (CUDA-event timing, which times the host where
     a class takes less time than its wrapper), on a CPU operator it
@@ -345,24 +367,11 @@ def profile_engines(op, x=None) -> dict[str, dict]:
         return out
 
     out = {}
-    if plan.dense is not None:
-        d = plan.dense
-        out["dense"] = timed(kernels.dense_spmv, d, _nbytes(d.val, d.meta),
-                             chunks=int(d.val.shape[0]), t_lanes=d.t_lanes)
-    if plan.band is not None:
-        bd = plan.band
-        out["band"] = timed(kernels.band_spmv, bd, _nbytes(bd.val, bd.bloc),
-                            chunks=int(bd.val.shape[0]), c_cols=bd.c_cols)
-    for s in plan.sparses:
-        out[f"sparse_w{s.width}"] = timed(
-            kernels.sparse_spmv, s, _nbytes(s.val, s.meta),
-            chunks=int(s.val.shape[0]), t_lanes=s.t_lanes)
-    for key, st in (("stream", plan.stream), ("stream2", plan.stream2)):
-        if st is not None:
-            out[key] = timed(kernels.stream_spmv, st,
-                             _nbytes(st.val, st.vidx, st.planes),
-                             slabs=int(st.nslabs), rounds=st.rounds,
-                             s_batch=st.s_batch)
+    for name, kind, c in reference.class_order(plan):
+        b, counts = _class_fields(kind, c)
+        # the class's SpMV wrapper, kernels.<kind>_spmv
+        out[name.removeprefix("tsp.launch.")] = timed(
+            getattr(kernels, kind + "_spmv"), c, b, **counts)
     r = plan.residual
     if r.val.shape[0]:
         out["residual"] = timed(
